@@ -29,7 +29,31 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                run's time limit;
   6. ptf-full — the deployment at full size (5.2 M cells) with
                prune="block" (no bitmap stage, pair-list kernel only),
-               kernel run against plain run the same way.
+               kernel run against plain run the same way;
+  7. attn    — the flash and paged attention kernels against their plain
+               versions on the sweeps of the reference's kernel tests
+               (fp32 within 2e-5, bf16 within 2e-2 / 3e-2) and at the
+               serving slice's own shapes;
+  8. prefill — llama3.2-3b at full width and depth (28 layers, random
+               bf16 weights from a seed) through ``make_prefill_step`` on
+               B=2 x S=4096 tokens: "auto" takes the blockwise path, so
+               the flash kernel launches once per layer; its logits held
+               against the same step on the plain versions within the
+               stated bounds, beside the floor of two plain formulations
+               (naive and blockwise attention) of the same step;
+  9. serve   — ``ServingEngine`` with the same model: 4 slots, max_len
+               512, 16-token pages, cost policy, 8 requests of a shared
+               192-token system prompt plus 64 tokens each, 16 new
+               tokens; every decode step (prompt replay included) goes
+               through the paged kernel once per layer. The run is then
+               replayed teacher-forced on the plain versions, every
+               step's logits compared within the same bounds, the
+               EngineStats equal. Two windows of the run's calls (prompt
+               replay, batched decode) are re-run for ms per step and,
+               under torch.profiler, the card's busy share;
+ 10. replay  — each attention kernel at the slice's largest shape: kernel,
+               plain and ``F.scaled_dot_product_attention`` times and the
+               bound.
 
 Prints the kernels' JSON record and the card's name and power limit on
 the two lines before the last, and ``{"ok": true, "device": ...}`` last.
@@ -37,6 +61,7 @@ the two lines before the last, and ``{"ok": true, "device": ...}`` last.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -55,15 +80,60 @@ from repro_torch.arrayio.generator import (make_geo_files,  # noqa: E402
 from repro_torch.core.cluster import (RawArrayCluster,  # noqa: E402
                                       workload_summary)
 from repro_torch.core.workload import geo_workload, ptf2_workload  # noqa: E402
+from repro_torch.kernels._build import build_all  # noqa: E402
 from repro_torch.kernels.simjoin import ops, prune, simjoin  # noqa: E402
 from repro_torch.kernels.simjoin.ref import count_pairs_ref  # noqa: E402
+from repro_torch.configs import get as get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention as flash  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import \
+    paged_attention as paged  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import \
+    paged_attention_ref  # noqa: E402
+from repro_torch.launch.serve import synth_requests  # noqa: E402
+from repro_torch.models import attention as model_attention  # noqa: E402
+from repro_torch.models.model import (decode_step,  # noqa: E402
+                                      init_decode_state, init_params)
+from repro_torch.serve.engine import ServingEngine  # noqa: E402
+from repro_torch.serve.serve_step import make_prefill_step  # noqa: E402
 
 N_NODES = 8
 KERNEL_SRC = "src/repro_torch/kernels/simjoin/simjoin.cu"
+SOURCES = {
+    "flash_attention_fwd":
+        "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+    "paged_attention":
+        "src/repro_torch/kernels/paged_attention/paged_attention.cu",
+}
 REPLACES = {
     "simjoin_block_counts": "src/repro/kernels/simjoin/simjoin.py:73",
     "simjoin_pruned_block_counts": "src/repro/kernels/simjoin/simjoin.py:108",
+    "flash_attention_fwd":
+        "src/repro/kernels/flash_attention/flash_attention.py:61",
+    "paged_attention":
+        "src/repro/kernels/paged_attention/paged_attention.py:71",
 }
+# Attention bounds, H100 SXM data sheet (NVIDIA, dense, 700 W): 989 TFLOP/s
+# bf16 on the tensor cores, 3.35 TB/s HBM3.
+BF16_FLOPS_PER_S = 989e12
+# The serving slice (the repo's llama3.2-3b config at full size).
+ARCH = "llama3.2-3b"
+PREFILL_B, PREFILL_S = 2, 4096
+SERVE = dict(slots=4, max_len=512, page_size=16, policy="cost")
+SERVE_REQUESTS, SYS_LEN, USER_LEN, NEW_TOKENS = 8, 192, 64, 16
+# Logit bounds, kernels against plain versions through the whole bf16
+# model at full depth. Both sides compute attention in fp32 and round its
+# output to bf16; they differ only in the order of fp32 sums, and the 28
+# layers amplify the rare one-ulp flips of a bf16 output. The prefill
+# phase prints that floor in every run: the plain step with naive
+# attention against the plain step with blockwise attention, two
+# formulations of the same function with no kernel in either (PERF.md
+# §6). The bounds sit above the floor: relative L2 error of the
+# logits (their rms is about 1) and largest absolute error.
+MODEL_REL_L2 = 3e-2
+MODEL_MAX_ABS = 0.2
 # The bound's rates, H100 SXM data sheet at 700 W: the 67 TFLOP/s
 # float32 CUDA-core peak (128 lanes per SM, an FMA
 # counted as 2 operations) bounds any 32-bit operation rate of the CUDA
@@ -483,6 +553,545 @@ def replay(largest):
     return rows
 
 
+# ------------------------------------------------------ attention slice
+
+
+def device_activity(prof):
+    """What the card did during a profiled window: (busy seconds, the
+    number of device events, device seconds by event name). Busy time is
+    the union of the device activity intervals the profiler recorded
+    (kernels, copies, sets); None when it recorded none."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            (e.time_range.end - e.time_range.start) / 1e6
+    total, end = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return (total / 1e6 if events else None), len(events), by_name
+
+
+def profiled(fn):
+    """Run ``fn()`` once under ``torch.profiler``; returns (result, wall
+    seconds of the profiled run, ``device_activity``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, device_activity(prof)
+
+
+def share(activity, wall, profiled_wall):
+    """Log fragment: device busy time against the unprofiled ``wall`` of
+    the same work (busy and idle share) and against the profiled run's,
+    the number of device events and the three names with the most device
+    time."""
+    busy, n_events, by_name = activity
+    if busy is None:
+        return "device busy not measured (the profiler saw no device time)"
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return (f"device busy {busy:.6f} s; unprofiled wall {wall:.6f} s: busy "
+            f"share {busy / wall:.6f}, idle share {1 - busy / wall:.6f} "
+            f"(profiled wall {profiled_wall:.6f} s, busy share "
+            f"{busy / profiled_wall:.6f}); {n_events} device events; most "
+            f"device time: " + "; ".join(f"{name[:60]} {sec:.6f} s"
+                                         for name, sec in top))
+
+
+def close(got, want, atol, rtol, what):
+    """Max |got - want| after checking |got - want| <= atol + rtol |want|."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if not torch.isfinite(g).all() or \
+            bool(((g - w).abs() > atol + rtol * w.abs()).any()):
+        raise AssertionError(f"{what}: max abs err {err} beyond atol "
+                             f"{atol} rtol {rtol}")
+    return err
+
+
+def logit_errors(got, want):
+    """(max |got - want|, ||got - want||_2 / ||want||_2) of two logit
+    tensors."""
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max()), float((g - w).norm() / w.norm())
+
+
+def close_logits(got, want, what):
+    """``logit_errors`` after checking them against the model-level
+    bounds (MODEL_MAX_ABS, MODEL_REL_L2) and the logits for finiteness."""
+    err, rel = logit_errors(got, want)
+    if not torch.isfinite(got).all() or err > MODEL_MAX_ABS or \
+            rel > MODEL_REL_L2:
+        raise AssertionError(f"{what}: max abs err {err} (bound "
+                             f"{MODEL_MAX_ABS}), relative L2 err {rel} "
+                             f"(bound {MODEL_REL_L2})")
+    return err, rel
+
+
+def randn(rng, shape, dtype, dev):
+    """Seeded normal draws as a card tensor of ``dtype``."""
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        dev, dtype)
+
+def phase_attention_kernels(dev):
+    """Both attention kernels against their plain versions on the sweeps
+    of the reference's kernel tests and at the slice's shapes."""
+    rng = np.random.default_rng(12)
+    err = {"flash_attention_fwd": 0.0, "paged_attention": 0.0}
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    cases = 0
+
+    def flash_case(b, sq, sk, h, hk, d, dtype, causal, bq=128, bk=128,
+                   tol=None):
+        q = randn(rng, (b, sq, h, d), dtype, dev)
+        k = randn(rng, (b, sk, hk, d), dtype, dev)
+        v = randn(rng, (b, sk, hk, d), dtype, dev)
+        got = flash_ops.flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
+        want = flash_ops.flash_attention(q, k, v, causal=causal, bq=bq,
+                                         bk=bk, impl="plain")
+        t = tols[dtype] if tol is None else tol
+        e = close(got, want, t, t, f"flash B{b} Sq{sq} Sk{sk} H{h}/{hk} D{d} "
+                  f"{dtype} causal={causal}")
+        err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
+        return q, k, v, got
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for sq, causal in ((128, True), (256, True), (130, True),
+                           (256, False), (384, True)):
+            flash_case(2, sq, sq if causal else 256, 4, 4, 64, dtype, causal)
+            cases += 1
+    for h, hk in ((8, 8), (8, 2), (4, 1)):
+        flash_case(1, 128, 128, h, hk, 32, torch.float32, True)
+        cases += 1
+    q, k, v, a = flash_case(1, 256, 256, 2, 2, 64, torch.float32, True)
+    b = flash_ops.flash_attention(q, k, v, causal=True, bq=64, bk=32)
+    close(b, a, 1e-5, 1e-5, "flash block-size invariance")
+    for dtype in (torch.float32, torch.bfloat16):
+        qt, kt, vt = (randn(rng, shape, dtype, dev) for shape in
+                      ((1, 2, 64, 32), (1, 2, 256, 32), (1, 2, 256, 32)))
+        got = flash.flash_attention_fwd(qt, kt, vt, causal=True, bq=64,
+                                        bk=64, q_offset=192)
+        want = attention_ref(qt, kt, vt, causal=True, q_offset=192)
+        e = close(got, want, tols[dtype], tols[dtype], "flash q_offset=192")
+        err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
+        cases += 2
+    cfg = get_config(ARCH)
+    hd = cfg.resolved_head_dim
+    flash_case(PREFILL_B, PREFILL_S, PREFILL_S, cfg.n_heads, cfg.n_kv_heads,
+               hd, torch.bfloat16, True)
+    cases += 1
+    log(f"attn[flash]: {cases} sweep cases + block-size invariance, kernel "
+        f"== plain, max_abs_err {err['flash_attention_fwd']}")
+
+    cases = 0
+    tols = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+    def paged_case(b, h, hk, d, n_pages, ps, maxp, lens, dtype, table=None):
+        q = randn(rng, (b, h, d), dtype, dev)
+        kp = randn(rng, (n_pages, ps, hk, d), dtype, dev)
+        vp = randn(rng, (n_pages, ps, hk, d), dtype, dev)
+        if table is None:
+            table = rng.permutation(n_pages)[:b * maxp].reshape(b, maxp)
+        table = torch.as_tensor(np.asarray(table, np.int32), device=dev)
+        sl = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
+        got = paged.paged_attention(q, kp, vp, table, sl)
+        want = paged.paged_attention(q, kp, vp, table, sl, impl="plain")
+        e = close(got, want, tols[dtype], tols[dtype],
+                  f"paged B{b} H{h}/{hk} D{d} PS{ps} MAXP{maxp} lens {lens} "
+                  f"{dtype}")
+        err["paged_attention"] = max(err["paged_attention"], e)
+        return got
+
+    for ps, maxp in ((16, 4), (32, 2), (8, 8)):
+        for h, hk in ((4, 4), (8, 2)):
+            paged_case(3, h, hk, 32, 64, ps, maxp, [ps * maxp] * 3,
+                       torch.float32)
+            cases += 1
+    for lens in ([1, 17, 40, 64], [0, 5, 0, 64], [64, 63, 33, 16]):
+        paged_case(4, 4, 4, 32, 64, 16, 4, lens, torch.float32)
+        cases += 1
+    shared = paged_case(2, 4, 4, 32, 32, 16, 3, [48, 48], torch.float32,
+                        table=[[5, 9, 11], [5, 9, 11]])
+    paged_case(2, 4, 4, 64, 32, 16, 2, [32, 32], torch.bfloat16)
+    cases += 2
+    # The decode shape: the engine's slots over the page view of its
+    # cache, at a spread of live lengths.
+    slots, max_len = SERVE["slots"], SERVE["max_len"]
+    ps = model_attention.page_size_for(max_len)
+    n_pg = max_len // ps
+    lens = np.linspace(0, max_len, slots).astype(int).tolist()
+    paged_case(slots, cfg.n_heads, cfg.n_kv_heads, hd, slots * n_pg, ps,
+               n_pg, lens, torch.bfloat16,
+               table=np.arange(slots * n_pg).reshape(slots, n_pg))
+    cases += 1
+    q = randn(rng, (2, 4, 32), torch.float32, dev)
+    q[1] = q[0]
+    kp = randn(rng, (32, 16, 4, 32), torch.float32, dev)
+    table = torch.tensor([[5, 9, 11], [5, 9, 11]], dtype=torch.int32,
+                         device=dev)
+    out = paged.paged_attention(q, kp, kp, table,
+                                torch.tensor([48, 48], device=dev))
+    if not torch.equal(out[0], out[1]):
+        raise AssertionError("paged: shared prefix pages, equal queries, "
+                             "unequal outputs")
+    del shared
+    log(f"attn[paged]: {cases} sweep cases (permuted tables, ragged "
+        f"lengths, seq_len = 0, shared prefix pages), kernel == plain, "
+        f"max_abs_err {err['paged_attention']}")
+    return err
+
+
+def zero_launches():
+    """Set every attention-kernel launch count to 0."""
+    flash.LAUNCHES["flash_attention_fwd"] = 0
+    paged.LAUNCHES["paged_attention"] = 0
+
+
+def phase_prefill(params, cfg, dev):
+    """The prefill step at full size through the flash kernel, against
+    the same step on the plain versions; returns the flash launches."""
+    rng = np.random.default_rng(13)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        PREFILL_B, PREFILL_S))).to(dev)
+    step = make_prefill_step(cfg)
+    step(params, tokens=tokens[:, :256])        # warm up (short)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    got = step(params, tokens=tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash.LAUNCHES["flash_attention_fwd"]
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.n_layers or paged.LAUNCHES["paged_attention"]:
+        raise AssertionError(f"prefill launched flash {launches} times "
+                             f"(want {cfg.n_layers}), paged "
+                             f"{paged.LAUNCHES['paged_attention']}")
+    _, pwall, activity = profiled(lambda: step(params, tokens=tokens))
+    label = card_label()
+    log(f"prefill: {ARCH} B={PREFILL_B} S={PREFILL_S}: wall {wall:.6f} s, "
+        f"flash launches {launches}, max_memory_allocated {peak} bytes "
+        f"[{label}]")
+    log(f"prefill: {share(activity, wall, pwall)} [{label}]")
+    t0 = time.perf_counter()
+    want = make_prefill_step(cfg, impl="plain")(params, tokens=tokens)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    err, rel = close_logits(got, want, "prefill logits")
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    naive = make_prefill_step(cfg, attention_impl="naive", impl="plain")(
+        params, tokens=tokens)
+    floor_err, floor_rel = logit_errors(naive, want)
+    floor_agree = int((naive.argmax(-1) == want.argmax(-1)).sum())
+    log(f"prefill[plain]: wall {plain_wall:.6f} s; last-position logits "
+        f"{tuple(got.shape)}: kernel vs plain max_abs_err {err}, relative "
+        f"L2 err {rel} (bounds {MODEL_MAX_ABS}, {MODEL_REL_L2}), argmax "
+        f"agrees in {agree} of {PREFILL_B} rows; floor (plain naive vs "
+        f"plain blockwise attention) max_abs_err {floor_err}, relative L2 "
+        f"err {floor_rel}, argmax agrees in {floor_agree} of {PREFILL_B}")
+    return launches
+
+
+class StepRecorder:
+    """Wraps a ``ServingEngine``'s decode step and prompt replay, and
+    records every decode_step call: the slot of a replay step (None for a
+    batched step), tokens, positions and the last position's logits, all
+    left on the card (nothing here synchronizes). ``capture`` is set
+    during a batched step, for the paged-call probe of ``phase_serve``."""
+
+    def __init__(self, engine):
+        self.calls = []
+        self.slot = None
+        self.capture = False
+        self._decode = engine._decode
+        self._prefill = engine._prefill_into_slot
+        engine._decode = self
+        engine._prefill_into_slot = self.prefill
+
+    def prefill(self, state, slot, tokens, start):
+        """Tag the replay steps of one admission with their slot."""
+        self.slot = slot
+        try:
+            return self._prefill(state, slot, tokens, start)
+        finally:
+            self.slot = None
+
+    def __call__(self, params, tokens, state, pos):
+        """One recorded decode step."""
+        self.capture = self.slot is None
+        logits, state = self._decode(params, tokens, state, pos)
+        self.capture = False
+        self.calls.append((self.slot, tokens.clone(), pos.clone(),
+                           logits[:, -1].clone()))
+        return logits, state
+
+
+class PlainReplay:
+    """Stands in for a plain-version engine's decode step: runs it, holds
+    its logits against the kernel run's for the same call, and hands the
+    engine the kernel run's logits, so the plain engine follows the
+    recorded tokens (teacher forcing)."""
+
+    def __init__(self, engine, calls):
+        self.calls = calls
+        self.n = 0
+        self.max_err = 0.0
+        self.max_rel = 0.0
+        self.flips = 0
+        self.slot = None
+        self._decode = engine._decode
+        self._prefill = engine._prefill_into_slot
+        engine._decode = self
+        engine._prefill_into_slot = self.prefill
+
+    def prefill(self, state, slot, tokens, start):
+        """Tag the replay steps of one admission with their slot."""
+        self.slot = slot
+        try:
+            return self._prefill(state, slot, tokens, start)
+        finally:
+            self.slot = None
+
+    def __call__(self, params, tokens, state, pos):
+        """One plain step, compared with the recorded kernel step."""
+        slot, rtok, rpos, rlogits = self.calls[self.n]
+        if slot != self.slot or not torch.equal(tokens, rtok) or \
+                not torch.equal(pos, rpos):
+            raise AssertionError(f"plain replay diverged at call {self.n}")
+        logits, state = self._decode(params, tokens, state, pos)
+        err, rel = close_logits(rlogits, logits[:, -1],
+                                f"serving logits, call {self.n}")
+        self.max_err = max(self.max_err, err)
+        self.max_rel = max(self.max_rel, rel)
+        self.flips += int((rlogits.argmax(-1)
+                           != logits[:, -1].argmax(-1)).sum())
+        self.n += 1
+        return rlogits[:, None, :], state
+
+
+def step_window(params, cfg, dev, window):
+    """Re-run recorded decode_step calls on a zeroed state of the
+    engine's shape (the step's work depends on the positions, not on the
+    cache's values): once to warm up, once timed, once profiled. Returns
+    (wall, profiled wall, ``device_activity``)."""
+    state = init_decode_state(cfg, SERVE["slots"], SERVE["max_len"],
+                              device=dev)
+
+    @torch.no_grad()
+    def run():
+        for slot, tok, pos in window:
+            st = state if slot is None else [
+                {k: t[slot:slot + 1] for k, t in layer.items()}
+                for layer in state]
+            decode_step(params, cfg, tok, st, pos)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, pwall, activity = profiled(run)
+    return wall, pwall, activity
+
+
+def phase_serve(params, cfg, dev):
+    """The serving engine at full size through the paged kernel, then the
+    plain-version replay; returns the paged launches and the inputs of
+    the run's largest paged call (most live positions)."""
+    reqs = synth_requests(SERVE_REQUESTS, cfg.vocab_size, seed=0,
+                          sys_len=SYS_LEN, user_len=USER_LEN)
+    for r in reqs:
+        r.max_new_tokens = NEW_TOKENS
+    engine = ServingEngine(cfg, params, device=dev, **SERVE)
+    recorder = StepRecorder(engine)
+    probes = []
+    inner = model_attention.paged_decode_attention
+
+    def probe(q, kp, vp, table, sl, impl="kernel"):
+        # The first layer's paged call of each batched step, kept.
+        if recorder.capture:
+            recorder.capture = False
+            probes.append([x.clone() for x in (q, kp, vp, table, sl)])
+        return inner(q, kp, vp, table, sl, impl=impl)
+
+    model_attention.paged_decode_attention = probe
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        done = engine.run(reqs)
+        torch.cuda.synchronize()
+    finally:
+        model_attention.paged_decode_attention = inner
+    wall = time.perf_counter() - t0
+    launches = paged.LAUNCHES["paged_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    calls = recorder.calls
+    n_calls = len(calls)
+    if launches != cfg.n_layers * n_calls or \
+            flash.LAUNCHES["flash_attention_fwd"]:
+        raise AssertionError(f"serving launched paged {launches} times for "
+                             f"{n_calls} decode steps, flash "
+                             f"{flash.LAUNCHES['flash_attention_fwd']}")
+    st = engine.stats
+    generated = sum(len(r.generated) for r in done)
+    if len(done) != SERVE_REQUESTS or generated != SERVE_REQUESTS * \
+            NEW_TOKENS:
+        raise AssertionError(f"served {len(done)} requests, {generated} "
+                             f"tokens")
+    n_rep = sum(1 for c in calls if c[0] is not None)
+    label = card_label()
+    log(f"serve: {ARCH} {SERVE}, {SERVE_REQUESTS} requests of {SYS_LEN} "
+        f"shared + {USER_LEN} own prompt tokens, {NEW_TOKENS} new each: "
+        f"{dataclasses.asdict(st)}")
+    log(f"serve: engine.run {wall:.6f} s wall, {generated} tokens = "
+        f"{generated / wall:.3f} generated tokens/s; {n_calls} decode_step "
+        f"calls ({n_rep} prompt-replay, {n_calls - n_rep} batched decode) "
+        f"= {1e3 * wall / n_calls:.4f} ms per call; paged launches "
+        f"{launches}; max_memory_allocated {peak} bytes [{label}]")
+    log(f"serve: generated[0] {done[0].generated}")
+    # Two windows of the run's calls, re-run for ms per step and the
+    # card's busy share: 32 prompt-replay steps of slot 0 from the middle
+    # of its first prompt, and the first 8 batched decode steps (all slots
+    # active).
+    mid = (SYS_LEN + USER_LEN) // 2
+    replay_w = [(s, t, p) for s, t, p, _ in calls
+                if s == 0 and mid <= int(p[0]) < mid + 32][:32]
+    decode_w = [(s, t, p) for s, t, p, _ in calls if s is None][:8]
+    for kind, window in (("prompt-replay", replay_w),
+                         ("batched decode", decode_w)):
+        wwall, pwall, activity = step_window(params, cfg, dev, window)
+        log(f"serve: {len(window)} {kind} steps re-run: "
+            f"{1e3 * wwall / len(window):.4f} ms per step; "
+            f"{share(activity, wwall, pwall)} [{label}]")
+
+    plain = ServingEngine(cfg, params, device=dev, impl="plain", **SERVE)
+    replay = PlainReplay(plain, calls)
+    reqs2 = synth_requests(SERVE_REQUESTS, cfg.vocab_size, seed=0,
+                           sys_len=SYS_LEN, user_len=USER_LEN)
+    for r in reqs2:
+        r.max_new_tokens = NEW_TOKENS
+    t0 = time.perf_counter()
+    done2 = plain.run(reqs2)
+    torch.cuda.synchronize()
+    if replay.n != n_calls:
+        raise AssertionError(f"plain replay made {replay.n} of {n_calls} "
+                             f"calls")
+    if dataclasses.asdict(plain.stats) != dataclasses.asdict(st):
+        raise AssertionError(f"EngineStats differ: {plain.stats} vs {st}")
+    if [r.generated for r in done2] != [r.generated for r in done]:
+        raise AssertionError("teacher-forced replay produced other tokens")
+    log(f"serve[plain]: teacher-forced replay of all {n_calls} steps in "
+        f"{time.perf_counter() - t0:.3f} s: logits max_abs_err "
+        f"{replay.max_err}, relative L2 err at most {replay.max_rel} "
+        f"(bounds {MODEL_MAX_ABS}, {MODEL_REL_L2}); the plain argmax "
+        f"differs in {replay.flips} of the {sum(c[1].shape[0] for c in calls)}"
+        f" lanes; EngineStats equal")
+    largest = max(probes, key=lambda args: int(args[4].sum()))
+    del recorder.calls, replay.calls, probes
+    return launches, largest
+
+def phase_attention_replay(dev, paged_args):
+    """Each attention kernel at the slice's largest shape: kernel, plain
+    and library times, and the bound."""
+    cfg = get_config(ARCH)
+    hd = cfg.resolved_head_dim
+    rng = np.random.default_rng(14)
+    rows = {}
+    label = card_label()
+    # Flash at the prefill's shape, heads-first as the kernel takes it.
+    b, s, h, hk = PREFILL_B, PREFILL_S, cfg.n_heads, cfg.n_kv_heads
+    q = randn(rng, (b, h, s, hd), torch.bfloat16, dev)
+    k = randn(rng, (b, hk, s, hd), torch.bfloat16, dev)
+    v = randn(rng, (b, hk, s, hd), torch.bfloat16, dev)
+    got = flash.flash_attention_fwd(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    err = close(got, want, 2e-2, 2e-2, "flash replay")
+    ms = cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True))
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), reps=3)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    live_pairs = b * h * s * (s + 1) // 2
+    flops = 4 * hd * live_pairs
+    nbytes = (q.nbytes + k.nbytes + v.nbytes + got.nbytes)
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rows["flash_attention_fwd"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+        bound_ms=max(ops_ms, bytes_ms),
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    log(f"replay[flash_attention_fwd]: q {tuple(q.shape)} k/v "
+        f"{tuple(k.shape)} bf16 causal: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{max(ops_ms, bytes_ms):.6f} ms ({flops} flops, {nbytes} bytes) "
+        f"[{label}]")
+    del q, k, v, got, want
+
+    # Paged at the serving run's largest call (most live positions).
+    q, kp, vp, table, sl = paged_args
+    got = paged.paged_attention(q, kp, vp, table, sl)
+    want = paged_attention_ref(q, kp, vp, table, sl)
+    err = close(got, want, 3e-2, 3e-2, "paged replay")
+    lib = paged.LIBRARY.load()
+    out = torch.empty_like(q)
+    ms = cuda_ms(lambda: paged._launch(lib, q, kp, vp, table, sl, out),
+                 reps=100)
+    wrapper_ms = cuda_ms(lambda: paged.paged_attention(q, kp, vp, table, sl),
+                         reps=100)
+    plain_ms = cuda_ms(lambda: paged_attention_ref(q, kp, vp, table, sl),
+                       reps=10)
+    bsz, hq, dd = q.shape
+    n_pg, ps = table.shape[1], kp.shape[1]
+    hkv = kp.shape[2]
+    kd = kp.view(bsz, n_pg * ps, hkv, dd).transpose(1, 2).contiguous()
+    vd = vp.view(bsz, n_pg * ps, hkv, dd).transpose(1, 2).contiguous()
+    mask = (torch.arange(n_pg * ps, device=dev)[None, :]
+            < sl[:, None])[:, None, None, :]
+    qd = q[:, :, None, :]
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True), reps=100)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True)[:, :, 0]
+    close(sdpa, want, 3e-2, 3e-2, "sdpa on the dense view")
+    live = int(sl.clamp(min=0).sum())
+    nbytes = (2 * live * hkv * dd * kp.element_size() + q.nbytes
+              + out.nbytes + table.nbytes + sl.nbytes)
+    flops = 4 * hq * dd * live
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rows["paged_attention"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+        bound_ms=max(ops_ms, bytes_ms),
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    log(f"replay[paged_attention]: q {tuple(q.shape)} pages "
+        f"{tuple(kp.shape)} table {tuple(table.shape)} seq_lens "
+        f"{sl.tolist()} bf16: kernel {ms:.4f} ms (wrapper with the table "
+        f"check {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+        f"{lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.6f} ms ({nbytes} "
+        f"bytes, {flops} flops) [{label}]")
+    return rows
+
+
+def _leaves(tree):
+    """Every tensor of a nested dict / list of parameters."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for x in items for t in _leaves(x)]
+
+
 def main(argv=None) -> int:
     """Run every phase; any failure raises and exits non-zero."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -506,13 +1115,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    simjoin.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s "
-        f"(built={simjoin.BUILD_INFO['built']}) -> "
-        f"{simjoin.BUILD_INFO['path']}")
-    for line in str(simjoin.BUILD_INFO["ptxas"]).splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"build: {line.strip()}")
+    libraries = (simjoin.LIBRARY, flash.LIBRARY, paged.LIBRARY)
+    build_all(libraries)
+    log(f"build: {time.perf_counter() - t0:.2f} s for {len(libraries)} "
+        f"sources, one nvcc each, in parallel")
+    for lib in libraries:
+        log(f"build: {lib.source.name} {lib.info['seconds']:.2f} s "
+            f"(built={lib.info['built']}) -> {lib.info['path']}")
+        for line in str(lib.info["ptxas"]).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"build: {line.strip()}")
 
     sweep_err = phase_kernels(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -534,6 +1146,32 @@ def main(argv=None) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None})
+
+    attn_err = phase_attention_kernels(dev)
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"model: {ARCH} at full size, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"{n_params} parameters ({sum(t.nbytes for t in _leaves(params))} "
+        f"bytes), random bf16 from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    attn_launches = {"flash_attention_fwd": phase_prefill(params, cfg, dev)}
+    attn_launches["paged_attention"], paged_args = phase_serve(params, cfg,
+                                                               dev)
+    del params
+    torch.cuda.empty_cache()
+    attn_rows = phase_attention_replay(dev, paged_args)
+    for name, row in attn_rows.items():
+        record.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": attn_launches[name],
+            "max_abs_err": max(row["max_abs_err"], attn_err[name]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": record}))
     print(card_label())

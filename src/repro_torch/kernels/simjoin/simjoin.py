@@ -24,24 +24,18 @@ kernel's int32 arithmetic block pair by block pair. There is no fallback
 between the two: a kernel that fails to build or launch raises.
 
 The kernels are compiled from ``simjoin.cu`` with ``nvcc`` for
-``sm_90a`` at their first CUDA call, into ``build/repro_torch_ext/``
-at the repository root, as a shared library with a plain C interface
-loaded through ``ctypes`` (its name carries the hash of the source and
-the flags, so an edited source rebuilds).
+``sm_90a`` at their first CUDA call by ``repro_torch.kernels._build``
+(a shared library with a plain C interface in
+``build/repro_torch_ext/``, loaded through ``ctypes``).
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
+
+from repro_torch.kernels._build import CudaLibrary
 
 BLOCK = 128
 SENTINEL = 1 << 20
@@ -56,91 +50,23 @@ LAUNCHES: Dict[str, int] = {"simjoin_block_counts": 0,
                             "simjoin_pruned_block_counts": 0}
 
 SOURCE = Path(__file__).with_name("simjoin.cu")
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_ext"
-NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Bound on the int32 elements one plain-version step materializes (the
 # (cells x cells) distance tile), so large chunk pairs run in slices.
 _PLAIN_STEP_ELEMS = 1 << 25
 
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
-#: Facts about the build, filled at first load: library path, whether
-#: this process compiled it, compile seconds, and nvcc's ptxas report.
-BUILD_INFO: Dict[str, object] = {}
-
-
-# --------------------------------------------------------------- build
-
-
-def _nvcc() -> str:
-    """Path of the CUDA compiler (``$CUDA_HOME/bin/nvcc``, else the one
-    on ``PATH``); raises when there is none."""
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the simjoin CUDA kernels are "
-                           "built from source at first use and need the "
-                           "CUDA toolkit")
-    return found
-
-
-def library_path() -> Path:
-    """Where the compiled library for the current source and flags
-    lives: ``build/repro_torch_ext/simjoin_<hash>.so``."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"simjoin_{digest[:16]}.so"
-
-
-def build() -> ctypes.CDLL:
-    """Compile ``simjoin.cu`` (once per source hash) and load it; returns
-    the loaded library with its ``argtypes``/``restype`` declared. A
-    failed compile raises with nvcc's output."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        path = library_path()
-        built = False
-        t0 = time.perf_counter()
-        log = ""
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                                   f"{' '.join(cmd)}\n{log}")
-            os.replace(tmp, path)
-            built = True
-        lib = ctypes.CDLL(str(path))
-        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.simjoin_dense_launch.argtypes = [vp, vp, vp, i64, i64, i64, i64,
-                                             i32, i32, vp]
-        lib.simjoin_dense_launch.restype = i32
-        lib.simjoin_pruned_launch.argtypes = [vp, vp, vp, vp, i64, i64, i64,
-                                              i64, i64, i32, i32, vp]
-        lib.simjoin_pruned_launch.restype = i32
-        lib.simjoin_error_string.argtypes = [i32]
-        lib.simjoin_error_string.restype = ctypes.c_char_p
-        BUILD_INFO.update(path=str(path), built=built,
-                          seconds=time.perf_counter() - t0, ptxas=log)
-        _lib = lib
-        return lib
-
-
-def _check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
-    """Raise when a launcher returned a CUDA error code."""
-    if err != 0:
-        msg = lib.simjoin_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+#: The compiled ``simjoin.cu`` and its two launchers.
+LIBRARY = CudaLibrary("simjoin", SOURCE, {
+    "simjoin_dense_launch": (("ptr", "ptr", "ptr", "i64", "i64", "i64", "i64",
+                              "i32", "i32", "ptr"), "i32"),
+    "simjoin_pruned_launch": (("ptr", "ptr", "ptr", "ptr", "i64", "i64",
+                               "i64", "i64", "i64", "i32", "i32", "ptr"),
+                              "i32"),
+})
+#: Facts about the build, filled at first load (see ``CudaLibrary.info``).
+BUILD_INFO = LIBRARY.info
+#: Compile ``simjoin.cu`` (once per source hash) and load it.
+build = LIBRARY.load
 
 
 # ------------------------------------------------------------ checks
@@ -335,7 +261,7 @@ def simjoin_block_counts(a: torch.Tensor, b: torch.Tensor, eps: int,
         err = lib.simjoin_dense_launch(a.data_ptr(), b.data_ptr(),
                                        out.data_ptr(), k, d, na, nb, eps,
                                        int(bool(same)), stream)
-    _check_launch(lib, err, "simjoin_block_counts")
+    LIBRARY.check(err, "simjoin_block_counts")
     LAUNCHES["simjoin_block_counts"] += 1
     return out
 
@@ -373,6 +299,6 @@ def simjoin_pruned_block_counts(a: torch.Tensor, b: torch.Tensor,
                                         pairs.data_ptr(), out.data_ptr(), k,
                                         d, na, nb, n_pairs, eps,
                                         int(bool(same)), stream)
-    _check_launch(lib, err, "simjoin_pruned_block_counts")
+    LIBRARY.check(err, "simjoin_pruned_block_counts")
     LAUNCHES["simjoin_pruned_block_counts"] += 1
     return out

@@ -205,8 +205,9 @@ def test_same_seed_same_bytes(fmt, tmp_path):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """A small port workload in a fresh interpreter leaves ``jax`` and
-    every ``repro`` module out of ``sys.modules``. It imports
+    """A small port workload and a reduced-size serving run in a fresh
+    interpreter leave ``jax`` and every ``repro`` module out of
+    ``sys.modules``. It imports
     ``repro_torch.faults`` first: unlike the reference's, the port's
     packages import in any order."""
     code = (
@@ -226,6 +227,16 @@ def test_port_imports_neither_jax_nor_repro():
         "ex = c.run_workload(ptf2_workload(cat.domain, n_queries=3, "
         "eps=300))\n"
         "assert all(e.matches is not None for e in ex)\n"
+        "from repro_torch.configs import get, reduced\n"
+        "from repro_torch.launch import serve\n"
+        "from repro_torch.models.model import init_params\n"
+        "from repro_torch.serve.engine import Request, ServingEngine\n"
+        "cfg = reduced(get('llama3.2-3b'))\n"
+        "eng = ServingEngine(cfg, init_params(cfg, device='cpu'), slots=2, "
+        "max_len=32, device='cpu')\n"
+        "done = eng.run([Request(i, [1, 2, 3, 4 + i], max_new_tokens=2) "
+        "for i in range(3)])\n"
+        "assert len(done) == 3 and eng.stats.decode_steps > 0\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'repro' or k.startswith('repro.')]\n"
         "print('BAD', bad)\n"
