@@ -6,7 +6,10 @@ Needs one CUDA card (an H100 for the kernels' ``sm_90a`` build) and the
 CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
 
   1. device  — the card's name and power limit (``nvidia-smi``);
-  2. build   — compile ``simjoin.cu`` with nvcc (seconds, ptxas report);
+  2. build   — compile the three CUDA sources with nvcc, one process each
+               in parallel (seconds, ptxas registers / static shared
+               memory / spills of every kernel, and the dynamic shared
+               memory of each flash kernel);
   3. kernels — both CUDA kernels against their plain PyTorch versions on
                the card, exact per-block-pair equality over a sweep of
                d, eps, cross/self joins, ragged sizes, large coordinates,
@@ -32,7 +35,9 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                kernel run against plain run the same way;
   7. attn    — the flash and paged attention kernels against their plain
                versions on the sweeps of the reference's kernel tests
-               (fp32 within 2e-5, bf16 within 2e-2 / 3e-2) and at the
+               (fp32 within 2e-5, bf16 within 2e-2 / 3e-2), the bf16
+               flash kernel at every head dim (ragged Sk, q_offset), the
+               paged kernel at every split count, and both at the
                serving slice's own shapes;
   8. prefill — llama3.2-3b at full width and depth (28 layers, random
                bf16 weights from a seed) through ``make_prefill_step`` on
@@ -50,10 +55,17 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                step's logits compared within the same bounds, the
                EngineStats equal. Two windows of the run's calls (prompt
                replay, batched decode) are re-run for ms per step and,
-               under torch.profiler, the card's busy share;
- 10. replay  — each attention kernel at the slice's largest shape: kernel,
-               plain and ``F.scaled_dot_product_attention`` times and the
-               bound.
+               under torch.profiler, the card's busy share; the first
+               layer's paged call of a B = 1 prompt-replay step (slot 0,
+               position 159) and of every batched step are kept;
+ 10. replay  — flash at the prefill's shape (kernel, plain and
+               ``F.scaled_dot_product_attention`` times, TFLOP/s, bound)
+               and paged at both kept serving calls (B = 1 replay, and
+               the B = 4 batched call with the most live positions):
+               the split count it chose, kernel time per launch back
+               to back from Python (the JSON ``ms``) and in a CUDA graph
+               of 100 launches (``graph_ms``: device time, free of the
+               host's launch cost), plain and SDPA times, bound.
 
 Prints the kernels' JSON record and the card's name and power limit on
 the two lines before the last, and ``{"ok": true, "device": ...}`` last.
@@ -118,11 +130,22 @@ REPLACES = {
 # Attention bounds, H100 SXM data sheet (NVIDIA, dense, 700 W): 989 TFLOP/s
 # bf16 on the tensor cores, 3.35 TB/s HBM3.
 BF16_FLOPS_PER_S = 989e12
+# The attention kernels' times before their redesign for Hopper, as
+# PERF.md §6 records them (an H100 80GB HBM3 at 700 W), quoted in the
+# replay log lines beside this run's; the kernels JSON line, which holds
+# only numbers measured in the run, points to PERF.md instead.
+EARLIER = {"flash_attention_fwd": "8.4915 ms before the redesign (fp32 on "
+                                  "the CUDA cores)",
+           "paged_attention": "0.0738 ms before the redesign (one CTA per "
+                              "(request, kv head))"}
 # The serving slice (the repo's llama3.2-3b config at full size).
 ARCH = "llama3.2-3b"
 PREFILL_B, PREFILL_S = 2, 4096
 SERVE = dict(slots=4, max_len=512, page_size=16, policy="cost")
 SERVE_REQUESTS, SYS_LEN, USER_LEN, NEW_TOKENS = 8, 192, 64, 16
+# The prompt-replay call whose paged inputs are kept (slot 0's first
+# prompt, the last position of the re-run replay window 128-159).
+REPLAY_PROBE_POS = (SYS_LEN + USER_LEN) // 2 + 31
 # Logit bounds, kernels against plain versions through the whole bf16
 # model at full depth. Both sides compute attention in fp32 and round its
 # output to bf16; they differ only in the order of fp32 sums, and the 28
@@ -607,6 +630,18 @@ def share(activity, wall, profiled_wall):
                                          for name, sec in top))
 
 
+def kernel_time(activity, marker, per=1):
+    """Log fragment: the device seconds of the kernels whose name holds
+    ``marker`` in a profiled window, their share of the device's busy
+    time, and milliseconds per ``per`` (a step)."""
+    busy, _, by_name = activity
+    if busy is None:
+        return f"{marker}: not measured"
+    sec = sum(t for name, t in by_name.items() if marker in name)
+    return (f"{marker} {sec:.6f} s = {sec / busy:.6f} of device busy time, "
+            f"{1e3 * sec / per:.4f} ms per step")
+
+
 def close(got, want, atol, rtol, what):
     """Max |got - want| after checking |got - want| <= atol + rtol |want|."""
     g, w = got.float(), want.float()
@@ -684,6 +719,22 @@ def phase_attention_kernels(dev):
         e = close(got, want, tols[dtype], tols[dtype], "flash q_offset=192")
         err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
         cases += 2
+    # The bf16 (wgmma) kernel at every head dim: causal GQA, ragged Sk
+    # without a mask past the diagonal, q_offset.
+    for d in flash.HEAD_DIMS:
+        for b, sq, sk, h, hk, causal, off in (
+                (2, 256, 256, 8, 2, True, 0), (1, 130, 200, 3, 1, False, 0),
+                (1, 64, 256, 2, 2, True, 192)):
+            qt, kt, vt = (randn(rng, (b, n, hh, d), torch.bfloat16, dev)
+                          .transpose(1, 2).contiguous()
+                          for n, hh in ((sq, h), (sk, hk), (sk, hk)))
+            got = flash.flash_attention_fwd(qt, kt, vt, causal=causal, bq=1,
+                                            bk=1, q_offset=off)
+            want = attention_ref(qt, kt, vt, causal=causal, q_offset=off)
+            e = close(got, want, 2e-2, 2e-2, f"flash bf16 D{d} Sq{sq} Sk{sk}"
+                      f" causal={causal} q_offset={off}")
+            err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
+            cases += 1
     cfg = get_config(ARCH)
     hd = cfg.resolved_head_dim
     flash_case(PREFILL_B, PREFILL_S, PREFILL_S, cfg.n_heads, cfg.n_kv_heads,
@@ -695,7 +746,8 @@ def phase_attention_kernels(dev):
     cases = 0
     tols = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
-    def paged_case(b, h, hk, d, n_pages, ps, maxp, lens, dtype, table=None):
+    def paged_case(b, h, hk, d, n_pages, ps, maxp, lens, dtype, table=None,
+                   splits=(None,)):
         q = randn(rng, (b, h, d), dtype, dev)
         kp = randn(rng, (n_pages, ps, hk, d), dtype, dev)
         vp = randn(rng, (n_pages, ps, hk, d), dtype, dev)
@@ -703,12 +755,18 @@ def phase_attention_kernels(dev):
             table = rng.permutation(n_pages)[:b * maxp].reshape(b, maxp)
         table = torch.as_tensor(np.asarray(table, np.int32), device=dev)
         sl = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
-        got = paged.paged_attention(q, kp, vp, table, sl)
         want = paged.paged_attention(q, kp, vp, table, sl, impl="plain")
-        e = close(got, want, tols[dtype], tols[dtype],
-                  f"paged B{b} H{h}/{hk} D{d} PS{ps} MAXP{maxp} lens {lens} "
-                  f"{dtype}")
-        err["paged_attention"] = max(err["paged_attention"], e)
+        for n in splits:
+            # None: the wrapper's own count. A number: that count forced
+            # through the launcher (the inputs are contiguous and the
+            # table valid), each split at least 1 position.
+            got = paged.paged_attention(q, kp, vp, table, sl) if n is None \
+                else paged._launch(paged.LIBRARY.load(), q, kp, vp, table,
+                                   sl, torch.empty_like(q), n, 1)
+            e = close(got, want, tols[dtype], tols[dtype],
+                      f"paged B{b} H{h}/{hk} D{d} PS{ps} MAXP{maxp} lens "
+                      f"{lens} {dtype} splits={n}")
+            err["paged_attention"] = max(err["paged_attention"], e)
         return got
 
     for ps, maxp in ((16, 4), (32, 2), (8, 8)):
@@ -733,6 +791,15 @@ def phase_attention_kernels(dev):
                n_pg, lens, torch.bfloat16,
                table=np.arange(slots * n_pg).reshape(slots, n_pg))
     cases += 1
+    # The two serving calls' shapes (B = 1 prompt replay, B = 4 batched
+    # decode), in both dtypes, at every split count.
+    every = (None,) + tuple(range(1, paged.MAX_SPLITS + 1))
+    for dtype in (torch.float32, torch.bfloat16):
+        paged_case(1, cfg.n_heads, cfg.n_kv_heads, hd, n_pg, ps, n_pg,
+                   [REPLAY_PROBE_POS + 1], dtype, splits=every)
+        paged_case(slots, cfg.n_heads, cfg.n_kv_heads, hd, slots * n_pg, ps,
+                   n_pg, [271] * slots, dtype, splits=every)
+        cases += 2
     q = randn(rng, (2, 4, 32), torch.float32, dev)
     q[1] = q[0]
     kp = randn(rng, (32, 16, 4, 32), torch.float32, dev)
@@ -745,8 +812,9 @@ def phase_attention_kernels(dev):
                              "unequal outputs")
     del shared
     log(f"attn[paged]: {cases} sweep cases (permuted tables, ragged "
-        f"lengths, seq_len = 0, shared prefix pages), kernel == plain, "
-        f"max_abs_err {err['paged_attention']}")
+        f"lengths, seq_len = 0, shared prefix pages; the serving shapes at "
+        f"split counts {every}), kernel == plain, max_abs_err "
+        f"{err['paged_attention']}")
     return err
 
 
@@ -782,7 +850,8 @@ def phase_prefill(params, cfg, dev):
     log(f"prefill: {ARCH} B={PREFILL_B} S={PREFILL_S}: wall {wall:.6f} s, "
         f"flash launches {launches}, max_memory_allocated {peak} bytes "
         f"[{label}]")
-    log(f"prefill: {share(activity, wall, pwall)} [{label}]")
+    log(f"prefill: {share(activity, wall, pwall)}; "
+        f"{kernel_time(activity, 'flash_fwd_bf16_kernel')} [{label}]")
     t0 = time.perf_counter()
     want = make_prefill_step(cfg, impl="plain")(params, tokens=tokens)
     torch.cuda.synchronize()
@@ -806,13 +875,18 @@ class StepRecorder:
     """Wraps a ``ServingEngine``'s decode step and prompt replay, and
     records every decode_step call: the slot of a replay step (None for a
     batched step), tokens, positions and the last position's logits, all
-    left on the card (nothing here synchronizes). ``capture`` is set
-    during a batched step, for the paged-call probe of ``phase_serve``."""
+    left on the card (nothing here synchronizes). ``capture`` names the
+    kind of the step under way when its paged call is to be kept by the
+    probe of ``phase_serve``: every batched step, and the first replay
+    step of slot 0 at position REPLAY_PROBE_POS (counted on the host from
+    the replay's start)."""
 
     def __init__(self, engine):
         self.calls = []
         self.slot = None
-        self.capture = False
+        self.pos = 0
+        self.capture = None
+        self.kept = False
         self._decode = engine._decode
         self._prefill = engine._prefill_into_slot
         engine._decode = self
@@ -820,7 +894,7 @@ class StepRecorder:
 
     def prefill(self, state, slot, tokens, start):
         """Tag the replay steps of one admission with their slot."""
-        self.slot = slot
+        self.slot, self.pos = slot, start
         try:
             return self._prefill(state, slot, tokens, start)
         finally:
@@ -828,9 +902,14 @@ class StepRecorder:
 
     def __call__(self, params, tokens, state, pos):
         """One recorded decode step."""
-        self.capture = self.slot is None
+        if self.slot is None:
+            self.capture = "batched"
+        elif self.slot == 0 and self.pos == REPLAY_PROBE_POS and \
+                not self.kept:
+            self.capture, self.kept = "replay", True
         logits, state = self._decode(params, tokens, state, pos)
-        self.capture = False
+        self.capture = None
+        self.pos += 1
         self.calls.append((self.slot, tokens.clone(), pos.clone(),
                            logits[:, -1].clone()))
         return logits, state
@@ -915,14 +994,15 @@ def phase_serve(params, cfg, dev):
         r.max_new_tokens = NEW_TOKENS
     engine = ServingEngine(cfg, params, device=dev, **SERVE)
     recorder = StepRecorder(engine)
-    probes = []
+    probes = {}
     inner = model_attention.paged_decode_attention
 
     def probe(q, kp, vp, table, sl, impl="kernel"):
-        # The first layer's paged call of each batched step, kept.
+        # The first layer's paged call of the steps ``capture`` names.
         if recorder.capture:
-            recorder.capture = False
-            probes.append([x.clone() for x in (q, kp, vp, table, sl)])
+            probes.setdefault(recorder.capture, []).append(
+                [x.clone() for x in (q, kp, vp, table, sl)])
+            recorder.capture = None
         return inner(q, kp, vp, table, sl, impl=impl)
 
     model_attention.paged_decode_attention = probe
@@ -975,7 +1055,9 @@ def phase_serve(params, cfg, dev):
         wwall, pwall, activity = step_window(params, cfg, dev, window)
         log(f"serve: {len(window)} {kind} steps re-run: "
             f"{1e3 * wwall / len(window):.4f} ms per step; "
-            f"{share(activity, wwall, pwall)} [{label}]")
+            f"{share(activity, wwall, pwall)}; "
+            f"{kernel_time(activity, 'paged_split_kernel', len(window))} "
+            f"[{label}]")
 
     plain = ServingEngine(cfg, params, device=dev, impl="plain", **SERVE)
     replay = PlainReplay(plain, calls)
@@ -999,13 +1081,105 @@ def phase_serve(params, cfg, dev):
         f"(bounds {MODEL_MAX_ABS}, {MODEL_REL_L2}); the plain argmax "
         f"differs in {replay.flips} of the {sum(c[1].shape[0] for c in calls)}"
         f" lanes; EngineStats equal")
-    largest = max(probes, key=lambda args: int(args[4].sum()))
+    kept = {"replay": probes["replay"][0],
+            "batched": max(probes["batched"],
+                           key=lambda args: int(args[4].sum()))}
     del recorder.calls, replay.calls, probes
-    return launches, largest
+    return launches, kept
+
+def graph_ms(fn, n: int = 100) -> float:
+    """Milliseconds per call of ``fn()`` replayed from a CUDA graph of
+    ``n`` calls (CUDA events around one replay, warmed): the card's time
+    per launch without the host's launch cost between launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(n):
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def replay_paged(args, kind, label):
+    """One kept serving call through the paged kernel: compared with the
+    plain version and timed (graph, back to back, wrapper, plain, SDPA on
+    the dense view), with its bound and the split count chosen."""
+    q, kp, vp, table, sl = args
+    dev = q.device
+    got = paged.paged_attention(q, kp, vp, table, sl)
+    want = paged_attention_ref(q, kp, vp, table, sl)
+    err = close(got, want, 3e-2, 3e-2, f"paged replay ({kind})")
+    lib = paged.LIBRARY.load()
+    out = torch.empty_like(q)
+    bsz, hq, dd = q.shape
+    n_pg, ps = table.shape[1], kp.shape[1]
+    hkv = kp.shape[2]
+    splits = paged.split_count(bsz, hkv, n_pg * ps, dev)
+
+    def launch(min_len=paged.MIN_SPLIT_LEN):
+        paged._launch(lib, q, kp, vp, table, sl, out, splits, min_len)
+    # Launched back to back from Python, as the path launches it (and as
+    # the time before the redesign was taken); then the card's time per
+    # launch alone, from a CUDA graph.
+    ms = cuda_ms(launch, reps=100)
+    in_graph_ms = graph_ms(launch)
+    # The same launch with 64 positions per split at least, for the
+    # record of MIN_SPLIT_LEN's choice.
+    ms_64 = graph_ms(lambda: launch(64))
+    wrapper_ms = cuda_ms(lambda: paged.paged_attention(q, kp, vp, table, sl),
+                         reps=100)
+    plain_ms = cuda_ms(lambda: paged_attention_ref(q, kp, vp, table, sl),
+                       reps=10)
+    # SDPA on the dense view of the pages this call reads (the table is
+    # the engine's identity page view of its slot cache).
+    pages = table.long().reshape(-1)
+    kd = kp[pages].view(bsz, n_pg * ps, hkv, dd).transpose(1, 2).contiguous()
+    vd = vp[pages].view(bsz, n_pg * ps, hkv, dd).transpose(1, 2).contiguous()
+    mask = (torch.arange(n_pg * ps, device=dev)[None, :]
+            < sl[:, None])[:, None, None, :]
+    qd = q[:, :, None, :]
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True), reps=100)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True)[:, :, 0]
+    close(sdpa, want, 3e-2, 3e-2, "sdpa on the dense view")
+    live = int(sl.clamp(min=0).sum())
+    nbytes = (2 * live * hkv * dd * kp.element_size() + q.nbytes
+              + out.nbytes + table.nbytes + sl.nbytes)
+    flops = 4 * hq * dd * live
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"replay[paged_attention] {kind}: q {tuple(q.shape)} pages "
+        f"{tuple(kp.shape)} table {tuple(table.shape)} seq_lens "
+        f"{sl.tolist()} bf16, {splits} splits of at least "
+        f"{paged.MIN_SPLIT_LEN} positions: kernel {ms:.4f} ms per launch "
+        f"back to back from Python, {in_graph_ms:.4f} ms in a CUDA graph "
+        f"({ms_64:.4f} ms with 64 positions per split at least; wrapper "
+        f"with the table check {wrapper_ms:.4f} ms), plain {plain_ms:.4f} "
+        f"ms, sdpa {lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.6f} ms "
+        f"({nbytes} bytes, {flops} flops); earlier {EARLIER['paged_attention']}"
+        f" [{label}]")
+    return dict(ms=ms, graph_ms=in_graph_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, max_abs_err=err, splits=splits,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
 
 def phase_attention_replay(dev, paged_args):
-    """Each attention kernel at the slice's largest shape: kernel, plain
-    and library times, and the bound."""
+    """Flash at the prefill's shape and paged at both kept serving calls:
+    kernel, plain and library times, and the bounds."""
     cfg = get_config(ARCH)
     hd = cfg.resolved_head_dim
     rng = np.random.default_rng(14)
@@ -1033,54 +1207,22 @@ def phase_attention_replay(dev, paged_args):
         bound_ms=max(ops_ms, bytes_ms),
         bound_by="operations" if ops_ms >= bytes_ms else "bytes")
     log(f"replay[flash_attention_fwd]: q {tuple(q.shape)} k/v "
-        f"{tuple(k.shape)} bf16 causal: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-        f"{max(ops_ms, bytes_ms):.6f} ms ({flops} flops, {nbytes} bytes) "
-        f"[{label}]")
+        f"{tuple(k.shape)} bf16 causal: kernel {ms:.4f} ms = "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / lib_ms:.3f} x sdpa; plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms = "
+        f"{flops / lib_ms / 1e9:.1f} TFLOP/s, bound "
+        f"{max(ops_ms, bytes_ms):.6f} ms ({flops} flops, {nbytes} bytes); "
+        f"earlier {EARLIER['flash_attention_fwd']} [{label}]")
     del q, k, v, got, want
 
-    # Paged at the serving run's largest call (most live positions).
-    q, kp, vp, table, sl = paged_args
-    got = paged.paged_attention(q, kp, vp, table, sl)
-    want = paged_attention_ref(q, kp, vp, table, sl)
-    err = close(got, want, 3e-2, 3e-2, "paged replay")
-    lib = paged.LIBRARY.load()
-    out = torch.empty_like(q)
-    ms = cuda_ms(lambda: paged._launch(lib, q, kp, vp, table, sl, out),
-                 reps=100)
-    wrapper_ms = cuda_ms(lambda: paged.paged_attention(q, kp, vp, table, sl),
-                         reps=100)
-    plain_ms = cuda_ms(lambda: paged_attention_ref(q, kp, vp, table, sl),
-                       reps=10)
-    bsz, hq, dd = q.shape
-    n_pg, ps = table.shape[1], kp.shape[1]
-    hkv = kp.shape[2]
-    kd = kp.view(bsz, n_pg * ps, hkv, dd).transpose(1, 2).contiguous()
-    vd = vp.view(bsz, n_pg * ps, hkv, dd).transpose(1, 2).contiguous()
-    mask = (torch.arange(n_pg * ps, device=dev)[None, :]
-            < sl[:, None])[:, None, None, :]
-    qd = q[:, :, None, :]
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True), reps=100)
-    sdpa = torch.nn.functional.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True)[:, :, 0]
-    close(sdpa, want, 3e-2, 3e-2, "sdpa on the dense view")
-    live = int(sl.clamp(min=0).sum())
-    nbytes = (2 * live * hkv * dd * kp.element_size() + q.nbytes
-              + out.nbytes + table.nbytes + sl.nbytes)
-    flops = 4 * hq * dd * live
-    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    rows["paged_attention"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-        bound_ms=max(ops_ms, bytes_ms),
-        bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-    log(f"replay[paged_attention]: q {tuple(q.shape)} pages "
-        f"{tuple(kp.shape)} table {tuple(table.shape)} seq_lens "
-        f"{sl.tolist()} bf16: kernel {ms:.4f} ms (wrapper with the table "
-        f"check {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
-        f"{lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.6f} ms ({nbytes} "
-        f"bytes, {flops} flops) [{label}]")
+    replay_row = replay_paged(paged_args["replay"], "B=1 prompt replay",
+                              label)
+    row = replay_paged(paged_args["batched"], "B=4 batched decode", label)
+    row.update(b1_ms=replay_row["ms"], b1_graph_ms=replay_row["graph_ms"],
+               b1_splits=replay_row["splits"],
+               max_abs_err=max(row["max_abs_err"],
+                               replay_row["max_abs_err"]))
+    rows["paged_attention"] = row
     return rows
 
 
@@ -1125,6 +1267,12 @@ def main(argv=None) -> int:
         for line in str(lib.info["ptxas"]).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"build: {line.strip()}")
+    fl = flash.LIBRARY.load()
+    log("build: flash dynamic shared memory per CTA: " + ", ".join(
+        f"{name} D={d} {fl.flash_smem_bytes(code, d)} bytes"
+        for code, name in ((1, "flash_fwd_bf16_kernel"),
+                           (0, "flash_fwd_f32_kernel"))
+        for d in flash.HEAD_DIMS))
 
     sweep_err = phase_kernels(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1165,13 +1313,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     attn_rows = phase_attention_replay(dev, paged_args)
     for name, row in attn_rows.items():
+        extra = {k: row[k] for k in ("graph_ms", "splits", "b1_ms",
+                                     "b1_graph_ms", "b1_splits") if k in row}
         record.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": attn_launches[name],
             "max_abs_err": max(row["max_abs_err"], attn_err[name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+            "library_ms": row["library_ms"], **extra,
+            "earlier": "PERF.md §6"})
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": record}))
     print(card_label())

@@ -1,56 +1,82 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a): two kernels, one per dtype.
 //
-// Replaces the Pallas TPU kernel flash_attention_fwd
+// Both replace the Pallas TPU kernel flash_attention_fwd
 // (src/repro/kernels/flash_attention/flash_attention.py:61, _flash_kernel
 // :22-58): q (B, H, Sq, D) against k, v (B, Hk, Sk, D) with H % Hk == 0
 // (GQA: query head h reads kv head h / (H / Hk), never an expanded copy),
 // online softmax over key tiles in fp32, causal mask on global indices
 // with q_offset (query i sees keys j <= i + q_offset), output in q's dtype.
-//
-// One CTA of 256 threads per (query tile of 64 rows, head, batch). It
-// stages its query tile (pre-scaled by 1/sqrt(D)) in shared memory once,
-// then walks key tiles of 64 rows up to the causal live bound: the last
-// key a live query row of the tile can see (the TPU kernel's nk_live skip).
-// Per tile: S = Q K^T as a 16 x 16 thread grid of 4 x 4 micro-tiles, the
-// masked running max / denominator update per row (16 lanes of a half warp
-// share a row and reduce with shuffles), P written to shared memory, then
-// O += P V with each thread owning 4 rows x D/16 columns of the fp32
-// accumulator in registers. Row and column padding: query rows >= Sq load
-// zeros and are not stored; key columns >= Sk score -1e30. Masked scores
-// use the finite -1e30 of the reference, never -inf, so no NaN arises: key
-// 0 is live for every row, so every row's running max is a real score
-// after the first tile and masked entries weigh exp(-1e30 - m) = 0.
+// Masked scores use the reference's finite -1e30, never -inf: key 0 is live
+// for every row and is in the first key tile, so every row's running max
+// is a real score after that tile and masked entries weigh exp(-1e30 - m)
+// = 0. Only key tiles up to the last key a row of the CTA can see are
+// visited (the TPU kernel's nk_live skip). The result does not depend on
+// the TPU kernel's bq / bk: each kernel tiles by its own sizes.
 //
 // What bounds it on this card: at the prefill shape (B 2, S 4096, H 24,
-// D 128, causal) it does about 2.1e11 flops on 134 MB of input and output,
-// so the tensor cores (989 TFLOP/s bf16) bound it, not HBM. This first
-// version computes in fp32 on the CUDA cores (67 TFLOP/s) from shared
-// memory, so it sits far above that bound; the tensor-core path (wgmma
-// with K/V streamed by TMA) is later work. The result does not depend on
-// the TPU kernel's bq / bk: this kernel tiles by its own 64 x 64.
+// D 128, causal) the forward does about 2.1e11 flops on 134 MB of input
+// and output, so the tensor cores (989 TFLOP/s bf16), not HBM, bound it.
+//
+// flash_fwd_bf16_kernel (bf16 q, k, v; FA3's shape). One CTA of 384
+// threads per (query tile of 128 rows, head, batch): two consumer
+// warpgroups of 64 query rows each and one producer warpgroup, which hands
+// its registers to the consumers (setmaxnreg 24 / 240). The CTAs of the
+// query tiles that see the most keys are launched first, so the causal
+// imbalance leaves no tail. The producer loads the Q tile once, then keeps
+// a ring of kStages K/V stages of 128 keys full, all by TMA through 3-D
+// tensor maps (D, S, B * heads), so the hardware's zero fill stops at each
+// head's own end; every stage signals an mbarrier with its byte count and
+// is handed back by the consumers through a second one. Tiles stay bf16 in
+// shared memory with the 128-byte swizzle (64-byte at D = 32) that wgmma
+// reads. A consumer computes S = Q K^T with wgmma m64n128k16 (both
+// operands from shared memory, fp32 accumulators), runs the online softmax
+// in registers in the accumulator layout (base-2 exponentials, the
+// log2(e) / sqrt(D) scale folded into one FMA with the running max; the
+// mask only on tiles that cross the diagonal or Sk), converts P to bf16 in
+// registers as wgmma's A operand and accumulates O += P V with V read
+// MN-major from shared memory. The epilogue divides by the row sums and
+// stores bf16, skipping rows >= Sq. Key columns >= Sk score -1e30.
+// Shared memory at D = 128: Q 32 KB + 2
+// stages x (K 32 KB + V 32 KB) = 160 KB, one CTA per SM.
+//
+// flash_fwd_f32_kernel (float32 q, k, v). The reference's fp32 tolerance
+// (2e-5) rules out TF32 tensor cores, so fp32 stays on the CUDA cores: one
+// CTA of 256 threads per (query tile of 64 rows, head, batch) stages Q and
+// K/V tiles of 64 keys in shared memory; S = Q K^T as a 16 x 16 thread grid
+// of 4 x 4 micro-tiles, the masked online softmax per row (16 lanes of a
+// half warp share a row), P through shared memory, and O += P V with each
+// thread owning 4 rows x D/16 columns of the fp32 accumulator.
+#include <cuda.h>          // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;           // query rows per CTA
-constexpr int kBK = 64;           // key rows per tile
-constexpr int kThreads = 256;     // a 16 x 16 grid of threads
-constexpr float kNegInf = -1e30f; // the reference's NEG_INF
+constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// cudaFuncSetAttribute once per kernel instantiation and device.
+template <typename Kernel>
+cudaError_t set_smem_once(Kernel kernel, size_t smem, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 0 && dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess && dev >= 0 && dev < kMaxDevices) done[dev] = true;
+  return err;
 }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
-}
+
+// =========================================================== fp32 kernel
+
+namespace f32 {
+
+constexpr int kBQ = 64;        // query rows per CTA
+constexpr int kBK = 64;        // key rows per tile
+constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -59,11 +85,12 @@ constexpr size_t smem_bytes() {
                           kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int Hk,
-                 int Sq, int Sk, int causal, int q_offset, float sm_scale) {
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int H, int Hk, int Sq, int Sk, int causal, int q_offset,
+                     float sm_scale) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int kCols = D / 16;   // accumulator columns per thread
   extern __shared__ float smem[];
@@ -79,17 +106,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % 16;   // column lane: key column / output column
   const int ty = tid / 16;   // row lane: rows ty + 16 i, i < 4
-  const T* qb = q + (static_cast<int64_t>(b) * H + h) * Sq * D;
-  const T* kb = k + (static_cast<int64_t>(b) * Hk + hk) * Sk * D;
-  const T* vb = v + (static_cast<int64_t>(b) * Hk + hk) * Sk * D;
-  T* ob = o + (static_cast<int64_t>(b) * H + h) * Sq * D;
+  const float* qb = q + (static_cast<int64_t>(b) * H + h) * Sq * D;
+  const float* kb = k + (static_cast<int64_t>(b) * Hk + hk) * Sk * D;
+  const float* vb = v + (static_cast<int64_t>(b) * Hk + hk) * Sk * D;
+  float* ob = o + (static_cast<int64_t>(b) * H + h) * Sq * D;
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int gr = q0 + r;
     Qs[r * (D + 1) + c] =
-        gr < Sq ? to_f(qb[static_cast<int64_t>(gr) * D + c]) * sm_scale
-                : 0.f;
+        gr < Sq ? qb[static_cast<int64_t>(gr) * D + c] * sm_scale : 0.f;
   }
 
   float acc[4][kCols];
@@ -119,8 +145,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int gk = k0 + r;
       const bool in = gk < Sk;
       const int64_t off = static_cast<int64_t>(gk) * D + c;
-      Ks[r * (D + 1) + c] = in ? to_f(kb[off]) : 0.f;
-      Vs[r * D + c] = in ? to_f(vb[off]) : 0.f;
+      Ks[r * (D + 1) + c] = in ? kb[off] : 0.f;
+      Vs[r * D + c] = in ? vb[off] : 0.f;
     }
     __syncthreads();
 
@@ -197,60 +223,583 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      ob[static_cast<int64_t>(gr) * D + tx + 16 * c] =
-          from_f<T>(acc[i][c] / denom);
+      ob[static_cast<int64_t>(gr) * D + tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hk, int Sq, int Sk, int causal, int q_offset,
            float sm_scale, cudaStream_t stream) {
+  static bool attr_set[kMaxDevices] = {};
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = set_smem_once(flash_fwd_f32_kernel<D>, smem, attr_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hk, Sq, Sk, causal,
-      q_offset, sm_scale);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, Hk, Sq, Sk,
+      causal, q_offset, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int H, int Hk, int Sq, int Sk, int causal, int q_offset,
-             float sm_scale, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, H, Hk, Sq, Sk, causal, q_offset, sm_scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, Hk, Sq, Sk, causal, q_offset, sm_scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Hk, Sq, Sk, causal, q_offset, sm_scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+}  // namespace f32
+
+// =========================================================== bf16 kernel
+
+namespace bf16 {
+
+constexpr int kBQ = 128;            // query rows per CTA
+constexpr int kRowsPerWG = 64;      // query rows per consumer warpgroup
+constexpr int kBK = 128;            // keys per K/V stage
+constexpr int kStages = 2;          // K/V ring depth
+constexpr int kConsumerWarps = 8;   // two warpgroups
+constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer warpgroup
+
+// Shared-memory tiles are made of swizzle atoms: kAtomCols columns of a
+// tile (128 bytes at D >= 64, 64 bytes at D = 32) for all its rows, one
+// atom after the other. TMA writes them with the matching swizzle and
+// wgmma reads them through descriptors.
+template <int D>
+struct Tile {
+  static constexpr int kAtomCols = D >= 64 ? 64 : 32;
+  static constexpr int kAtomBytes = kAtomCols * 2;   // bytes per atom row
+  static constexpr int kAtoms = D / kAtomCols;
+  static constexpr uint64_t kLayout = D >= 64 ? 1 : 2;  // wgmma: 128B / 64B
+  static constexpr uint32_t kQBytes = kBQ * D * 2;
+  static constexpr uint32_t kKVBytes = kBK * D * 2;     // K or V, one stage
+  static constexpr uint32_t kBarrierOffset = kQBytes + 2 * kStages * kKVBytes;
+  // + the barriers, + slack to align the base to 1024 bytes.
+  static constexpr size_t kSmem = kBarrierOffset + 64 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed. A wait that
+// outlasts some seconds traps, so a lost arrival fails the launch instead
+// of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    if (spins == (1u << 30)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
+
+// One box of a 3-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving accumulator reads above the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B in shared memory
+// (K-major, by descriptor), fp32 accumulators in registers.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 32] += A[64 x 16] * B[16 x 32], A (bf16 pairs) in registers, B in
+// shared memory (MN-major, by descriptor), fp32 accumulators in registers.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A (bf16 pairs) in registers, B in
+// shared memory (MN-major, by descriptor), fp32 accumulators in registers.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A (bf16 pairs) in registers, B in
+// shared memory (MN-major, by descriptor), fp32 accumulators in registers.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 32) wgmma_rs_n32(d, a, db);
+  if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (D == 128) wgmma_rs_n128(d, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      __nv_bfloat16* __restrict__ o, int H, int Hk, int Sq,
+                      int Sk, int causal, int q_offset, float scale_log2) {
+  using T = Tile<D>;
+  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;                               // [atoms][kBQ rows]
+  const uint32_t sK = sQ + T::kQBytes;                    // [kStages] tiles
+  const uint32_t sV = sK + kStages * T::kKVBytes;         // [kStages] tiles
+  const uint32_t q_full = base + T::kBarrierOffset;       // then full, empty
+  const uint32_t full0 = q_full + 8;
+  const uint32_t empty0 = full0 + 8 * kStages;
+
+  const int qt = gridDim.y - 1 - blockIdx.y;   // the heaviest tiles first
+  const int bh = blockIdx.x;                    // b * H + h
+  const int b = bh / H;
+  const int hk = (bh - b * H) / (H / Hk);
+  const int q0 = qt * kBQ;
+  // Keys past the last one a row of this tile can see are masked for
+  // every row: their tiles are never loaded.
+  int kv_end = Sk;
+  if (causal) kv_end = min(Sk, min(q0 + kBQ, Sq) + q_offset);
+  const int n_tiles = (kv_end + kBK - 1) / kBK;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // Producer warpgroup: gives its registers to the consumers; one
+    // thread issues every TMA load of the CTA.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == kConsumerWarps && lane == 0) {
+      mbar_expect_tx(q_full, T::kQBytes);
+      for (int a = 0; a < T::kAtoms; ++a)
+        tma_load_3d(sQ + a * kBQ * T::kAtomBytes, &q_map, q_full,
+                    a * T::kAtomCols, q0, bh);
+      const int kvh = b * Hk + hk;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        const uint32_t full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * T::kKVBytes);
+        for (int a = 0; a < T::kAtoms; ++a) {
+          const uint32_t off = s * T::kKVBytes + a * kBK * T::kAtomBytes;
+          tma_load_3d(sK + off, &k_map, full, a * T::kAtomCols, t * kBK, kvh);
+          tma_load_3d(sV + off, &v_map, full, a * T::kAtomCols, t * kBK, kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns query rows [row_wg, row_wg + 64); this
+  // thread holds rows r0 and r0 + 8 of the accumulator layout.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = warp / 4;
+  const int row_wg = q0 + wg * kRowsPerWG;
+  const int r0 = row_wg + 16 * (warp % 4) + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  constexpr uint32_t kSbo = 8 * T::kAtomBytes;   // between 8-row groups
+  const uint32_t q_wg = sQ + wg * kRowsPerWG * T::kAtomBytes;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    mbar_wait(full0 + 8 * s, (t / kStages) & 1);
+    const uint32_t k_s = sK + s * T::kKVBytes;
+    const uint32_t v_s = sV + s * T::kKVBytes;
+
+    // S = Q K^T over D in steps of 16 (both operands K-major).
+    float sc[kBK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk * 16 / T::kAtomCols) * kBQ * T::kAtomBytes +
+                           (kk * 16 % T::kAtomCols) * 2;
+      const uint32_t koff = (kk * 16 / T::kAtomCols) * kBK * T::kAtomBytes +
+                            (kk * 16 % T::kAtomCols) * 2;
+      wgmma_ss_n128(sc, make_desc(q_wg + off, 16, kSbo, T::kLayout),
+                    make_desc(k_s + koff, 16, kSbo, T::kLayout), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // Online softmax in the accumulator layout: sc[4 j + e] is row
+    // r0 + 8 (e / 2), key k0 + 8 j + c0 + e % 2.
+    const int k0 = t * kBK;
+    if (k0 + kBK > Sk || (causal && k0 + kBK - 1 > row_wg + q_offset)) {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + 8 * j + c0 + (e & 1);
+          const int qi = r0 + 8 * (e >> 1) + q_offset;
+          if (kj >= Sk || (causal && kj > qi)) sc[4 * j + e] = kNegInf;
+        }
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float corr[2], rsum[2] = {0.f, 0.f}, nm[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r] * scale_log2);
+      corr[r] = exp2f(m[r] - mn);
+      m[r] = mn;
+      nm[r] = -mn;
+    }
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      sc[i] = exp2f(fmaf(sc[i], scale_log2, nm[(i >> 1) & 1]));
+      rsum[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rsum[r];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    // O += P V: P as bf16 A fragments in registers (the accumulator layout
+    // of S is the A layout of 16-key slices), V MN-major from shared memory.
+    uint32_t pa[kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_pv<D>(acc, pa[kk],
+                  make_desc(v_s + kk * 16 * T::kAtomBytes,
+                            kBK * T::kAtomBytes, kSbo, T::kLayout));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);   // the stage is free
+  }
+
+  // Epilogue: row sums across the quad, normalise, store bf16 rows < Sq.
+  __nv_bfloat16* ob = o + static_cast<int64_t>(bh) * Sq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const float inv = 1.f / fmaxf(lr, 1e-30f);
+    const int row = r0 + 8 * r;
+    if (row >= Sq) continue;
+    __nv_bfloat16* orow = ob + static_cast<int64_t>(row) * D + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                acc[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time through the
+// runtime, so the library links against libcudart alone.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Error codes of the tensor-map step, above every cudaError_t.
+constexpr int kNoEncodeFn = 100000;
+constexpr int kEncodeFailed = 100001;
+
+// A (D, S, heads) bf16 tensor map whose box is one swizzle atom of
+// `rows` rows of one head.
+template <int D>
+int encode(CUtensorMap* map, const void* ptr, int S, int heads, int rows) {
+  using T = Tile<D>;
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return kNoEncodeFn;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(S) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(T::kAtomCols),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int Hk, int Sq, int Sk, int causal, int q_offset,
+           float sm_scale, cudaStream_t stream) {
+  using T = Tile<D>;
+  static bool attr_set[kMaxDevices] = {};
+  cudaError_t err = set_smem_once(flash_fwd_bf16_kernel<D>, T::kSmem,
+                                  attr_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap qm, km, vm;
+  int bad = encode<D>(&qm, q, Sq, B * H, kBQ);
+  if (!bad) bad = encode<D>(&km, k, Sk, B * Hk, kBK);
+  if (!bad) bad = encode<D>(&vm, v, Sk, B * Hk, kBK);
+  if (bad) return bad;
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, T::kSmem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), H, Hk, Sq, Sk, causal,
+      q_offset, sm_scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bf16
 
 }  // namespace
 
 extern "C" {
 
 const char* flash_error_string(int err) {
+  if (err == bf16::kNoEncodeFn)
+    return "cuTensorMapEncodeTiled not found in the driver";
+  if (err == bf16::kEncodeFailed)
+    return "cuTensorMapEncodeTiled refused the tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launch the forward on `stream`; dtype 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() (0 = ok).
+// Dynamic shared memory of one CTA; dtype 0 = float32, 1 = bfloat16.
+int64_t flash_smem_bytes(int dtype, int D) {
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return f32::smem_bytes<32>();
+      case 64: return f32::smem_bytes<64>();
+      case 128: return f32::smem_bytes<128>();
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 32: return bf16::Tile<32>::kSmem;
+      case 64: return bf16::Tile<64>::kSmem;
+      case 128: return bf16::Tile<128>::kSmem;
+    }
+  }
+  return -1;
+}
+
+// Launch the forward on `stream`; dtype 0 = float32 (flash_fwd_f32_kernel),
+// 1 = bfloat16 (flash_fwd_bf16_kernel). Returns 0, a cudaError_t, or one
+// of the tensor-map codes of flash_error_string.
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                      int dtype, int B, int H, int Hk, int Sq, int Sk, int D,
                      int causal, int q_offset, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, B, H, Hk, Sq, Sk, causal, q_offset,
-                           sm_scale, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, Hk, Sq, Sk, causal,
-                                   q_offset, sm_scale, s);
+#define REPRO_FLASH_ARGS q, k, v, o, B, H, Hk, Sq, Sk, causal, q_offset, sm_scale, s
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return f32::launch<32>(REPRO_FLASH_ARGS);
+      case 64: return f32::launch<64>(REPRO_FLASH_ARGS);
+      case 128: return f32::launch<128>(REPRO_FLASH_ARGS);
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 32: return bf16::launch<32>(REPRO_FLASH_ARGS);
+      case 64: return bf16::launch<64>(REPRO_FLASH_ARGS);
+      case 128: return bf16::launch<128>(REPRO_FLASH_ARGS);
+    }
+  }
+#undef REPRO_FLASH_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -2,22 +2,26 @@
 PyTorch version.
 
 The port of ``repro/kernels/flash_attention/flash_attention.py``. The
-CUDA kernel in ``flash_attention.cu`` replaces the Pallas TPU kernel
+CUDA kernels in ``flash_attention.cu`` replace the Pallas TPU kernel
 ``flash_attention_fwd``: q ``(B, H, Sq, D)`` against k, v
 ``(B, Hk, Sk, D)`` with GQA (query head h reads kv head ``h // (H //
 Hk)``), online softmax in fp32, causal masking on global indices with
-``q_offset``, output in q's dtype.
+``q_offset``, output in q's dtype. bfloat16 inputs go to
+``flash_fwd_bf16_kernel`` (wgmma on the tensor cores, K/V streamed by
+TMA); float32 inputs to ``flash_fwd_f32_kernel`` (the CUDA cores, which
+keep the reference's fp32 tolerance that TF32 would not).
 
-:func:`flash_attention_fwd` launches the kernel for CUDA tensors and
-counts the launch in :data:`LAUNCHES`; for CPU tensors, or under
-``impl="plain"``, it runs the plain version :func:`ref.attention_ref`.
-There is no fallback between the two: a kernel that fails to build or
-launch raises. The kernel takes float32 and bfloat16 and head dims in
-:data:`HEAD_DIMS`; anything else raises on a CUDA tensor.
+:func:`flash_attention_fwd` launches a kernel for CUDA tensors and
+counts the launch in :data:`LAUNCHES` (both kernels under one name); for
+CPU tensors, or under ``impl="plain"``, it runs the plain version
+:func:`ref.attention_ref`. There is no fallback between the two: a
+kernel that fails to build or launch raises. The kernels take float32
+and bfloat16 and head dims in :data:`HEAD_DIMS`; anything else raises on
+a CUDA tensor.
 
 ``bq`` and ``bk`` keep the reference's contract (``Sq % bq == 0`` and
 ``Sk % bk == 0``, which ``ops`` meets by padding) but do not reach the
-kernel, which tiles by its own 64 x 64: the result does not depend on
+kernels, which tile by their own sizes: the result does not depend on
 them.
 """
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels._build import CudaLibrary
+from repro_torch.kernels._tensors import aligned16
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 #: ``impl`` values: ``"kernel"`` launches the CUDA kernel for CUDA
@@ -36,7 +41,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 #: the plain version, on whatever device the tensors are on.
 IMPLS = ("kernel", "plain")
 
-#: Head dims the CUDA kernel is instantiated for.
+#: Head dims both CUDA kernels are instantiated for.
 HEAD_DIMS = (32, 64, 128)
 
 #: Kernel name -> launches so far (bumped only where the kernel launches).
@@ -44,11 +49,13 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: The compiled ``flash_attention.cu`` and its launcher.
+#: The compiled ``flash_attention.cu``: its launcher and the dynamic
+#: shared memory a CTA of each kernel takes (by dtype code and head dim).
 LIBRARY = CudaLibrary("flash", Path(__file__).with_name("flash_attention.cu"), {
     "flash_fwd_launch": (("ptr", "ptr", "ptr", "ptr", "i32", "i32", "i32",
                           "i32", "i32", "i32", "i32", "i32", "i32", "f32",
                           "ptr"), "i32"),
+    "flash_smem_bytes": (("i32", "i32"), "i64"),
 })
 
 
@@ -105,17 +112,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, h, sq, d = q.shape
     _, hk, sk, _ = k.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the CUDA flash kernel takes float32 or bfloat16 "
+        raise TypeError(f"the CUDA flash kernels take float32 or bfloat16 "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernel takes head dims "
+        raise ValueError(f"the CUDA flash kernels take head dims "
                          f"{HEAD_DIMS}, got {d}")
     if b > 65535 or h > 65535:
         raise ValueError(f"grid too large: B={b}, H={h}")
     if max(q.numel(), k.numel()) >= 2 ** 31:
         raise ValueError("q or k has 2^31 or more elements")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (aligned16(x.contiguous()) for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -1,4 +1,5 @@
-// Paged single-token decode attention for Hopper (sm_90a).
+// Paged single-token decode attention for Hopper (sm_90a), split along the
+// sequence (flash-decoding) and combined inside the same launch.
 //
 // Replaces the Pallas TPU kernel paged_attention
 // (src/repro/kernels/paged_attention/paged_attention.py:71, _paged_kernel
@@ -7,186 +8,309 @@
 // p < seq_lens[b]; fp32 running max / denominator / accumulator carried
 // across the cache; output in q's dtype.
 //
-// One CTA of 128 threads per (kv head, request). It holds the rep = H / Hk
-// query heads of its GQA group (pre-scaled by 1/sqrt(D)) in shared memory
-// and walks its own row of the page table in chunks of 32 positions: the
-// chunk's K and V rows are gathered from their pages into shared memory
-// (fp32), one warp per query head scores the 32 positions (one lane per
-// position), updates the head's running max and denominator and writes the
-// weights, then all threads fold the weighted V rows into the fp32
-// accumulator. The TPU grid steps over every page in order; here the loop
-// inside the CTA plays that role, and the chunking does not follow page
-// boundaries, so the arithmetic is the same for any page size.
+// One thread-block cluster of n_split CTAs (at most 8, the portable size)
+// per (request, kv head, chunk of at most R query heads of its GQA group).
+// The n_pos positions a request visits are cut into n_eff = min(n_split,
+// ceil(n_pos / min_len)) contiguous ranges of ceil(n_pos / n_eff); CTA s of
+// the cluster takes range s (ranges past n_eff are empty). Inside a CTA of
+// 128 threads, D / (16 bytes of elements) lanes share one position: each
+// lane loads its 16-byte slice of the K and V rows that the page table
+// names (every row read once for all the CTA's query heads), the lanes
+// reduce the dot products with shuffles, and every group of lanes keeps
+// its own fp32 (m, l, acc) per query head with an online softmax over its
+// positions, several rows' loads in flight at once. The groups merge by
+// shuffles, the warps through shared memory, and the CTAs of the cluster
+// through distributed shared memory: after a cluster barrier, CTA s
+// combines a slice of the outputs from every CTA's partial in rank order,
+// so the result does not depend on scheduling, and no float atomics are
+// used. A second cluster barrier keeps every partial alive until read.
 //
-// Positions at or past seq_len weigh exp(-1e30 - m) = 0 once a live score
-// set the running max m (position 0 is live whenever seq_len > 0), so the
-// CTA stops at min(seq_len, MAXP * PS). With seq_len <= 0 every score is
-// -1e30 and the reference attends uniformly over all MAXP * PS positions;
-// the CTA then walks all of them, which gives the same result.
+// Positions at or past seq_len are never visited: they would weigh
+// exp(-1e30 - m) = 0 once a live score set the running max m. With
+// seq_len <= 0 every score is -1e30 and the reference attends uniformly
+// over all MAXP * PS positions; the kernel then visits all of them with
+// score -1e30, which gives the same result.
 //
 // What bounds it on this card: bytes. Each live position costs 2 * D
 // elements of K and V read once, against 4 * rep * D flops, far below the
-// 295 flops per byte at which the tensor cores would bound it. The host
-// checks that every table entry lies in [0, NP), so no gather leaves the
-// page pool. One CTA per (request, kv head) leaves most SMs idle at small
-// batch; splitting the sequence across CTAs is later work.
+// 295 flops per byte at which the tensor cores would bound it; at decode
+// sizes the launch and one trip to HBM set the floor, so the design aims
+// at filling the SMs (the host picks n_split from B * Hk) with many loads
+// in flight. The host checks that every table entry lies in [0, NP), so no
+// gather leaves the page pool.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kChunk = 32;        // positions per step: one per lane
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -1e30f; // the reference's NEG_INF
+constexpr int kMaxSplits = 8;      // the portable cluster size
+constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// 16 bytes of T from global memory, as floats.
+__device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
 }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__host__ __device__ constexpr size_t smem_floats(int rep, int D) {
-  // q, K (padded by one column), V, weights, accumulator, m, l, corr.
-  return static_cast<size_t>(rep) * D + kChunk * (D + 1) + kChunk * D +
-         static_cast<size_t>(rep) * kChunk + static_cast<size_t>(rep) * D +
-         3 * static_cast<size_t>(rep);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-             const T* __restrict__ vp, const int32_t* __restrict__ table,
-             const int32_t* __restrict__ seq_lens, T* __restrict__ out, int H,
-             int Hk, int PS, int maxp, float sm_scale) {
-  extern __shared__ float smem[];
-  const int rep = H / Hk;
-  float* qs = smem;                        // [rep][D]
-  float* ks = qs + rep * D;                // [kChunk][D + 1]
-  float* vs = ks + kChunk * (D + 1);       // [kChunk][D]
-  float* ps = vs + kChunk * D;             // [rep][kChunk]
-  float* acc = ps + rep * kChunk;          // [rep][D]
-  float* ms = acc + rep * D;               // [rep]
-  float* ls = ms + rep;                    // [rep]
-  float* corr = ls + rep;                  // [rep]
-
-  const int g = blockIdx.x;                // kv head
-  const int b = blockIdx.y;                // request
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const T* qb = q + (static_cast<int64_t>(b) * H + g * rep) * D;
-  const int32_t* row = table + static_cast<int64_t>(b) * maxp;
-
-  for (int idx = tid; idx < rep * D; idx += kThreads) {
-    qs[idx] = to_f(qb[idx]) * sm_scale;
-    acc[idx] = 0.f;
+__device__ __forceinline__ void load16(const __nv_bfloat16* p,
+                                       float (&f)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
   }
-  for (int r = tid; r < rep; r += kThreads) {
-    ms[r] = kNegInf;
-    ls[r] = 0.f;
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename T, int D, int R>
+__global__ void __launch_bounds__(kThreads)
+paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                   const T* __restrict__ vp,
+                   const int32_t* __restrict__ table,
+                   const int32_t* __restrict__ seq_lens, T* __restrict__ out,
+                   int H, int Hk, int PS, int maxp, int n_chunks, int min_len,
+                   float sm_scale) {
+  constexpr int kE = 16 / sizeof(T);   // elements per lane (one load)
+  constexpr int kL = D / kE;           // lanes per position
+  constexpr int kP = 32 / kL;          // positions per warp step
+  constexpr int kU = R >= 8 ? 2 : 4;   // steps whose loads are in flight
+  static_assert(kL >= 1 && kL <= 32 && 32 % kL == 0, "head dim");
+  __shared__ float w_acc[kWarps][R][D];
+  __shared__ float w_m[kWarps][R], w_l[kWarps][R];
+  __shared__ float c_acc[R][D];   // this CTA's partial, read by the cluster
+  __shared__ float c_m[R], c_l[R];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int g = blockIdx.y / n_chunks;          // kv head
+  const int b = blockIdx.z;                     // request
+  const int rep = H / Hk;
+  const int h0 = g * rep + (blockIdx.y % n_chunks) * R;
+  const int nr = min(R, g * rep + rep - h0);    // query heads of this CTA
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slot = lane / kL, sub = lane % kL;
+
+  float qr[R][kE];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r < nr) {
+      load16(q + (static_cast<int64_t>(b) * H + h0 + r) * D + sub * kE,
+             qr[r]);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) qr[r][e] *= sm_scale;
+    } else {
+#pragma unroll
+      for (int e = 0; e < kE; ++e) qr[r][e] = 0.f;
+    }
   }
 
   const int total = maxp * PS;
   const int sl = seq_lens[b];
-  const int n_pos = sl > 0 ? min(sl, total) : total;
+  const bool live = sl > 0;
+  const int n_pos = live ? min(sl, total) : total;
+  const int n_eff = min(n_split, (n_pos + min_len - 1) / min_len);
+  const int len = (n_pos + n_eff - 1) / n_eff;
+  const int p_begin = split * len;
+  const int p_end = min(n_pos, p_begin + len);
 
-  for (int t0 = 0; t0 < n_pos; t0 += kChunk) {
-    const int n = min(kChunk, n_pos - t0);
-    __syncthreads();   // the previous chunk's K, V and weights are consumed
-    for (int idx = tid; idx < n * D; idx += kThreads) {
-      const int j = idx / D, c = idx % D;
-      const int t = t0 + j;
-      const int64_t page = row[t / PS];
-      const int64_t base = ((page * PS + t % PS) * Hk + g) * D;
-      ks[j * (D + 1) + c] = to_f(kp[base + c]);
-      vs[j * D + c] = to_f(vp[base + c]);
+  float m[R], l[R], acc[R][kE];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc[r][e] = 0.f;
+  }
+  const int32_t* row = table + static_cast<int64_t>(b) * maxp;
+  constexpr int kStep = kWarps * kP;
+  // The loop bound is uniform in the warp, so every lane takes part in
+  // the shuffles; a lane past p_end loads nothing and updates nothing.
+  for (int p0 = p_begin + warp * kP; p0 < p_end; p0 += kU * kStep) {
+    float kf[kU][kE], vf[kU][kE];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int p = p0 + u * kStep + slot;
+      if (p < p_end) {
+        const int64_t page = row[p / PS];
+        const int64_t off = ((page * PS + p % PS) * Hk + g) * D + sub * kE;
+        load16(kp + off, kf[u]);
+        load16(vp + off, vf[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) kf[u][e] = vf[u][e] = 0.f;
+      }
     }
-    __syncthreads();
-
-    for (int r = warp; r < rep; r += kWarps) {
-      float s = kNegInf;
-      if (lane < n) {
-        const float* qr = qs + r * D;
-        const float* kr = ks + lane * (D + 1);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const bool in = p0 + u * kStep + slot < p_end;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= nr) continue;
         float dot = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = t0 + lane < sl ? dot : kNegInf;
-      }
-      float mx = s;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = ms[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float p = lane < n ? expf(s - m_new) : 0.f;
-      float psum = p;
+        for (int e = 0; e < kE; ++e) dot = fmaf(qr[r][e], kf[u][e], dot);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      ps[r * kChunk + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float c = expf(m_old - m_new);
-        corr[r] = c;
-        ls[r] = ls[r] * c + psum;
-        ms[r] = m_new;
+        for (int o = kL / 2; o > 0; o >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        if (!in) continue;
+        const float s = live ? dot : kNegInf;
+        const float mn = fmaxf(m[r], s);
+        const float c = expf(m[r] - mn), pw = expf(s - mn);
+        l[r] = l[r] * c + pw;
+        m[r] = mn;
+#pragma unroll
+        for (int e = 0; e < kE; ++e)
+          acc[r][e] = fmaf(pw, vf[u][e], acc[r][e] * c);
       }
     }
-    __syncthreads();
+  }
 
-    for (int idx = tid; idx < rep * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      float a = acc[idx] * corr[r];
-      const float* pr = ps + r * kChunk;
-      for (int j = 0; j < n; ++j) a = fmaf(pr[j], vs[j * D + c], a);
-      acc[idx] = a;
+  // Merge the lane groups of the warp (a butterfly: every group ends with
+  // the same sums), then the warps in shared memory, in a fixed order.
+#pragma unroll
+  for (int o = kL; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[r], o);
+      const float l2 = __shfl_xor_sync(0xffffffffu, l[r], o);
+      const float mn = fmaxf(m[r], m2);
+      const float c1 = expf(m[r] - mn), c2 = expf(m2 - mn);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const float a2 = __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+        acc[r][e] = acc[r][e] * c1 + a2 * c2;
+      }
+      l[r] = l[r] * c1 + l2 * c2;
+      m[r] = mn;
+    }
+  }
+  if (slot == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int e = 0; e < kE; ++e) w_acc[warp][r][sub * kE + e] = acc[r][e];
+      if (sub == 0) {
+        w_m[warp][r] = m[r];
+        w_l[warp][r] = l[r];
+      }
     }
   }
   __syncthreads();
+  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    float mm = w_m[0][r], ll = w_l[0][r], a = w_acc[0][r][d];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float mn = fmaxf(mm, w_m[w][r]);
+      const float c1 = expf(mm - mn), c2 = expf(w_m[w][r] - mn);
+      a = a * c1 + w_acc[w][r][d] * c2;
+      ll = ll * c1 + w_l[w][r] * c2;
+      mm = mn;
+    }
+    c_acc[r][d] = a;
+    if (d == 0) {
+      c_m[r] = mm;
+      c_l[r] = ll;
+    }
+  }
 
-  T* ob = out + (static_cast<int64_t>(b) * H + g * rep) * D;
-  for (int idx = tid; idx < rep * D; idx += kThreads)
-    ob[idx] = from_f<T>(acc[idx] / fmaxf(ls[idx / D], 1e-30f));
+  // Combine the cluster's partials: CTA `split` writes outputs split,
+  // split + n_split, ... (in units of kThreads), reading every CTA's
+  // partial in rank order.
+  cluster.sync();
+  for (int idx = split * kThreads + threadIdx.x; idx < nr * D;
+       idx += n_split * kThreads) {
+    const int r = idx / D, d = idx % D;
+    float mm = kNegInf, ll = 0.f, a = 0.f;
+    for (int c = 0; c < n_split; ++c) {
+      const float* rm = cluster.map_shared_rank(&c_m[0], c);
+      const float* rl = cluster.map_shared_rank(&c_l[0], c);
+      const float* ra = cluster.map_shared_rank(&c_acc[0][0], c);
+      const float m2 = rm[r];
+      const float mn = fmaxf(mm, m2);
+      const float c1 = expf(mm - mn), c2 = expf(m2 - mn);
+      a = a * c1 + ra[r * D + d] * c2;
+      ll = ll * c1 + rl[r] * c2;
+      mm = mn;
+    }
+    store(out + (static_cast<int64_t>(b) * H + h0 + r) * D + d,
+          a / fmaxf(ll, 1e-30f));
+  }
+  cluster.sync();   // no CTA leaves while another may read its partial
+}
+
+template <typename T, int D, int R>
+int launch(const void* q, const void* kp, const void* vp,
+           const int32_t* table, const int32_t* seq_lens, void* out, int B,
+           int H, int Hk, int PS, int maxp, int n_split, int min_len,
+           float sm_scale, cudaStream_t stream) {
+  const int rep = H / Hk;
+  const int n_chunks = (rep + R - 1) / R;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, Hk * n_chunks, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, paged_split_kernel<T, D, R>, static_cast<const T*>(q),
+      static_cast<const T*>(kp), static_cast<const T*>(vp), table, seq_lens,
+      static_cast<T*>(out), H, Hk, PS, maxp, n_chunks, min_len, sm_scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Query heads per CTA for a GQA group of `rep`: 1, 2, 4 or 8 (larger
+// groups take several CTAs of 8).
+inline int heads_per_cta(int rep) {
+  return rep <= 1 ? 1 : rep <= 2 ? 2 : rep <= 4 ? 4 : 8;
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* kp, const void* vp,
-           const int32_t* table, const int32_t* seq_lens, void* out, int B,
-           int H, int Hk, int PS, int maxp, float sm_scale,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(H / Hk, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(Hk, B);
-  paged_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, seq_lens, static_cast<T*>(out), H,
-      Hk, PS, maxp, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+int launch_r(const void* q, const void* kp, const void* vp,
+             const int32_t* table, const int32_t* seq_lens, void* out, int B,
+             int H, int Hk, int PS, int maxp, int n_split, int min_len,
+             float sm_scale, cudaStream_t s) {
+#define REPRO_PAGED_ARGS q, kp, vp, table, seq_lens, out, B, H, Hk, PS, maxp, n_split, min_len, sm_scale, s
+  switch (heads_per_cta(H / Hk)) {
+    case 1: return launch<T, D, 1>(REPRO_PAGED_ARGS);
+    case 2: return launch<T, D, 2>(REPRO_PAGED_ARGS);
+    case 4: return launch<T, D, 4>(REPRO_PAGED_ARGS);
+    default: return launch<T, D, 8>(REPRO_PAGED_ARGS);
+  }
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* kp, const void* vp,
              const int32_t* table, const int32_t* seq_lens, void* out, int B,
-             int H, int Hk, int PS, int maxp, float sm_scale,
-             cudaStream_t s) {
+             int H, int Hk, int PS, int maxp, int n_split, int min_len,
+             float sm_scale, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32>(q, kp, vp, table, seq_lens, out, B, H, Hk, PS, maxp, sm_scale, s);
-    case 64: return launch<T, 64>(q, kp, vp, table, seq_lens, out, B, H, Hk, PS, maxp, sm_scale, s);
-    case 128: return launch<T, 128>(q, kp, vp, table, seq_lens, out, B, H, Hk, PS, maxp, sm_scale, s);
+    case 32: return launch_r<T, 32>(REPRO_PAGED_ARGS);
+    case 64: return launch_r<T, 64>(REPRO_PAGED_ARGS);
+    case 128: return launch_r<T, 128>(REPRO_PAGED_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_PAGED_ARGS
 }
 
 }  // namespace
@@ -197,24 +321,24 @@ const char* paged_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory one CTA needs for a GQA group of `rep` heads.
-int64_t paged_smem_bytes(int rep, int D) {
-  return static_cast<int64_t>(sizeof(float) * smem_floats(rep, D));
-}
-
 // Launch the decode kernel on `stream`; dtype 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() (0 = ok).
+// n_split CTAs (1..8, one cluster) per (request, kv head, head chunk);
+// each request's positions go to min(n_split, ceil(n_pos / min_len)) of
+// them. Returns cudaGetLastError() (0 = ok).
 int paged_launch(const void* q, const void* kp, const void* vp,
                  const int32_t* table, const int32_t* seq_lens, void* out,
                  int dtype, int B, int H, int Hk, int PS, int maxp, int D,
-                 float sm_scale, void* stream) {
+                 float sm_scale, int n_split, int min_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_split < 1 || n_split > kMaxSplits || min_len < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return launch_d<float>(D, q, kp, vp, table, seq_lens, out, B, H, Hk, PS,
-                           maxp, sm_scale, s);
+                           maxp, n_split, min_len, sm_scale, s);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(D, q, kp, vp, table, seq_lens, out, B, H,
-                                   Hk, PS, maxp, sm_scale, s);
+                                   Hk, PS, maxp, n_split, min_len, sm_scale,
+                                   s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -147,8 +147,15 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of the table for integer ``tokens``."""
-    return params["table"][tokens.long()]
+    """Rows of the table for integer ``tokens``, with ids mapped as the
+    reference's gather maps them: a negative id counts from the end (id +
+    V, as numpy indexes), then every id is clamped to [0, V - 1]. The
+    mapping runs on the tokens' own device, before the gather."""
+    table = params["table"]
+    vocab = table.shape[0]
+    ids = tokens.long()
+    ids = torch.where(ids < 0, ids + vocab, ids).clamp_(0, vocab - 1)
+    return table[ids]
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -115,7 +115,7 @@ class ServingEngine:
             for s in range(self.slots):
                 if active[s] is None and queue:
                     req = queue.pop(0)
-                    _check_prompt(req, self.max_len, self.cfg.vocab_size)
+                    _check_prompt(req, self.max_len)
                     alloc = self.manager.allocate(req.request_id, req.prompt)
                     cached_tokens = len(req.prompt) - alloc.recompute_tokens
                     self.stats.requests += 1
@@ -154,18 +154,14 @@ class ServingEngine:
         return done
 
 
-def _check_prompt(req: Request, max_len: int, vocab: int) -> None:
-    """Reject, on the host, a prompt the decode path cannot hold: longer
-    than ``max_len``, or with a token id outside the vocabulary (the
-    reference's gather clamps such ids silently; here they raise)."""
+def _check_prompt(req: Request, max_len: int) -> None:
+    """Reject, on the host, a prompt longer than ``max_len``, which the
+    decode path cannot hold. Token ids outside the vocabulary are not
+    refused: the embedding maps them as the reference's gather does."""
     if len(req.prompt) > max_len:
         raise ValueError(f"request {req.request_id}: prompt of "
                          f"{len(req.prompt)} tokens exceeds max_len="
                          f"{max_len}")
-    bad = [t for t in req.prompt if not 0 <= t < vocab]
-    if bad:
-        raise ValueError(f"request {req.request_id}: token ids {bad[:4]} "
-                         f"outside the vocabulary [0, {vocab})")
 
 
 def _merge_slot(old: KVState, new: KVState, slot: int) -> None:

@@ -204,6 +204,35 @@ def test_paged_ragged_lengths(J, lens):
     check_paged(J, make_paged(1, 4, 4, 4, 32, 64, 16, 4, lens=lens), 2e-5)
 
 
+@pytest.mark.parametrize("lens", [[1, 17, 40, 64], [0, 5, 0, 64],
+                                  [-3, 63, 33, 16]])
+@pytest.mark.parametrize("splits", [1, 2, 3, tpaged.MAX_SPLITS])
+def test_paged_split_combine_matches_reference(J, splits, lens):
+    """The kernel's split-and-combine arithmetic (plain version) against
+    the reference's oracle: ragged lengths, seq_len = 0 and < 0, with
+    every split one position at least and with the automatic minimum."""
+    inputs = make_paged(8, 4, 8, 2, 32, 64, 16, 4, lens=lens)
+    t = [tt(x) for x in inputs]
+    want = f32(J.paged_ref(*(J.arr(x) for x in inputs)))
+    for min_len in (1, tpaged.MIN_SPLIT_LEN // 4):
+        got = tpaged.paged_attention_split_plain(*t, splits, min_len)
+        np.testing.assert_allclose(f32(got), want, rtol=2e-5, atol=2e-5)
+
+
+def test_paged_split_count(monkeypatch):
+    """The automatic split fills the card's SMs with clusters of at most
+    MAX_SPLITS CTAs and gives each split MIN_SPLIT_LEN positions of the
+    table's capacity."""
+    monkeypatch.setitem(tpaged._sm_count, 0, 132)
+    dev = torch.device("cuda", 0)
+    assert tpaged.split_count(1, 8, 512, dev) == tpaged.MAX_SPLITS
+    assert tpaged.split_count(4, 8, 512, dev) == 5
+    assert tpaged.split_count(4, 8, 2 * tpaged.MIN_SPLIT_LEN, dev) == 2
+    assert tpaged.split_count(64, 8, 512, dev) == 1
+    n_eff, length = tpaged.split_bounds(torch.tensor([1, 145, 512]), 8, 64)
+    assert n_eff.tolist() == [1, 3, 8] and length.tolist() == [1, 49, 64]
+
+
 def test_paged_shared_prefix_pages(J):
     """Two requests sharing prefix pages: equal queries give equal
     attention."""
@@ -307,3 +336,96 @@ def test_paged_kernel_on_card():
     t[3][0, 0] = 64
     with pytest.raises(ValueError, match="outside"):
         tpaged.paged_attention(*t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", tflash.HEAD_DIMS)
+def test_flash_bf16_kernel_on_card(d):
+    """The wgmma/TMA bf16 kernel against its plain version at every head
+    dim: causal GQA, ragged Sk (non-causal, Sq and Sk off the tile
+    sizes), q_offset = 192, and bq / bk that do not change the result."""
+    _need_card()
+    tol = 2e-2
+    cases = [(2, 256, 256, 8, 2, True, 0), (1, 130, 200, 3, 1, False, 0),
+             (1, 64, 256, 2, 2, True, 192), (2, 384, 384, 4, 4, True, 0)]
+    for b, sq, sk, h, hk, causal, off in cases:
+        t = [tt(heads_first(x), "bfloat16").cuda()
+             for x in make_qkv(9, b, sq, sk, h, hk, d)]
+        got = tflash.flash_attention_fwd(*t, causal=causal, bq=1, bk=1,
+                                         q_offset=off)
+        want = tattention_ref(*t, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(f32(got), f32(want), rtol=tol, atol=tol)
+        other = tflash.flash_attention_fwd(*t, causal=causal, bq=sq,
+                                           bk=sk, q_offset=off)
+        assert torch.equal(got, other)
+    t = [tt(x, "bfloat16").cuda() for x in make_qkv(10, 1, 256, 256, 2, 2,
+                                                      d)]
+    a = tflash_ops.flash_attention(*t, causal=True, bq=128, bk=128)
+    b = tflash_ops.flash_attention(*t, causal=True, bq=64, bk=32)
+    np.testing.assert_allclose(f32(a), f32(b), rtol=tol, atol=tol)
+
+
+def _serving_paged(seed, b, lens, dtype="bfloat16"):
+    """Inputs of a decode call at the serving slice's shape (24 query /
+    8 KV heads of 128, 16-token pages, 32 pages per request) on the
+    card."""
+    return [tt(x, dtype).cuda()
+            for x in make_paged(seed, b, 24, 8, 128, 32 * b, 16, 32,
+                                lens=lens)]
+
+
+def _launch_split(t, n_split):
+    """The kernel on contiguous inputs whose table the wrapper has
+    checked, with exactly ``n_split`` splits per request (fewer when a
+    request has fewer positions than splits)."""
+    q, kp, vp, table, lens = t
+    return tpaged._launch(tpaged.LIBRARY.load(), q, kp, vp, table,
+                          lens.to(torch.int32).contiguous(),
+                          torch.empty_like(q), n_split, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lens", [(1, [145]), (4, [271, 271, 271, 271]),
+                                    (4, [0, 1, 200, 512])])
+def test_paged_kernel_splits_on_card(b, lens):
+    """The split kernel at the serving shapes (B = 1 prompt replay, B = 4
+    batched decode, ragged with seq_len = 0): every split count and the
+    automatic one agree with the plain version and with the plain
+    split-and-combine of the same count."""
+    _need_card()
+    t = _serving_paged(11, b, lens)
+    want = tpaged.paged_attention(*t, impl="plain")
+    for splits in (None, 1, 2, 3, tpaged.MAX_SPLITS):
+        got = tpaged.paged_attention(*t) if splits is None \
+            else _launch_split(t, splits)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(f32(got), f32(want), rtol=3e-2,
+                                   atol=3e-2)
+        if splits is not None:
+            split_plain = tpaged.paged_attention_split_plain(*t, splits)
+            np.testing.assert_allclose(f32(got), f32(split_plain),
+                                       rtol=3e-2, atol=3e-2)
+    f = [tt(x).cuda() for x in make_paged(12, b, 24, 8, 128, 32 * b, 16,
+                                          32, lens=lens)]
+    want = tpaged.paged_attention(*f, impl="plain")
+    for splits in (None, 1, 3):
+        got = tpaged.paged_attention(*f) if splits is None \
+            else _launch_split(f, splits)
+        np.testing.assert_allclose(f32(got), f32(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_shared_prefix_on_card():
+    """Two requests whose tables name the same pages, with equal queries,
+    get bit-equal outputs (the combine order is fixed), and repeating a
+    call repeats its bits."""
+    _need_card()
+    q, kp, vp, table, lens = _serving_paged(13, 2, [300, 300])
+    q[1] = q[0]
+    table[1] = table[0]
+    out = tpaged.paged_attention(q, kp, vp, table, lens)
+    again = tpaged.paged_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], out[1]) and torch.equal(out, again)

@@ -136,6 +136,19 @@ def test_mlp_matches(mlp_type):
     np.testing.assert_allclose(f32(got), f32(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("tok", [-1, -64, -69, 64, 104, 99])
+def test_embed_maps_ids_as_the_reference(tok):
+    """Out-of-range ids (V = 64): the reference's gather counts a negative
+    id from the end and clamps the rest to [0, V - 1]; the port's embed
+    gives the same rows."""
+    table = np.random.default_rng(5).standard_normal((64, 8), np.float32)
+    ids = np.asarray([[tok, 0, 63]], np.int32)
+    want = jlayers.embed({"table": jnp.asarray(table)}, jnp.asarray(ids))
+    got = tlayers.embed({"table": torch.from_numpy(table)},
+                        torch.from_numpy(ids))
+    np.testing.assert_array_equal(f32(got), np.asarray(want))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_unembed_is_fp32(dtype):
     jd, td, _ = DTYPES[dtype]

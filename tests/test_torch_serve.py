@@ -108,20 +108,21 @@ def test_engine_end_to_end_matches():
     """tests/test_serve.py::test_engine_end_to_end, on both engines."""
     system = list(range(1, 13))
     kw = dict(slots=2, max_len=64, page_size=4, cache_budget_pages=64)
-    _, teng, tdone = run_both(
+    jeng, teng, tdone = run_both(
         "qwen1.5-0.5b", kw, [system + [20 + i] for i in range(4)], 4,
         cfg_kw=dict(d_model=32, n_periods=1, vocab=64))
     assert len(tdone) == 4 and all(len(r.generated) == 4 for r in tdone)
     assert teng.stats.prefill_saved > 0
-    # Identical prompts decode identical tokens (batch consistency). The
-    # reference's test appends token 99 to a 64-token vocabulary, which
-    # its embedding gather clamps to id 63; the port rejects the id, so
-    # the batch-consistency run uses 63 itself.
-    with pytest.raises(ValueError, match="vocabulary"):
-        teng.run([tengine.Request(10, system + [99], max_new_tokens=2)])
-    done2 = teng.run([tengine.Request(10 + i, system + [63],
+    # Identical prompts decode identical tokens (batch consistency), on
+    # the reference's own input: token 99 in a 64-token vocabulary, which
+    # both embeddings clamp to id 63. Both engines give the same tokens.
+    jdone2 = jeng.run([jengine.Request(10 + i, system + [99],
+                                       max_new_tokens=2) for i in range(2)])
+    done2 = teng.run([tengine.Request(10 + i, system + [99],
                                       max_new_tokens=2) for i in range(2)])
     assert done2[0].generated == done2[1].generated
+    assert_same_tokens(jdone2, done2, jeng.cfg, jeng.params, kw["max_len"])
+    assert dataclasses.asdict(teng.stats) == dataclasses.asdict(jeng.stats)
 
 
 @pytest.mark.parametrize("mix", ["shared", "cold"])
@@ -178,14 +179,23 @@ def test_prefill_replay_leaves_other_lanes_alone():
 
 
 def test_malformed_prompts_raise():
-    """A prompt longer than the cache or with an out-of-vocabulary id is
-    rejected on the host before any step runs."""
+    """A prompt longer than the cache is rejected on the host before any
+    step runs."""
     _, tcfg, _, tp = both("qwen1.5-0.5b")
     eng = tengine.ServingEngine(tcfg, tp, slots=1, max_len=8, device="cpu")
     with pytest.raises(ValueError, match="max_len"):
         eng.run([tengine.Request(0, list(range(1, 10)))])
-    with pytest.raises(ValueError, match="vocabulary"):
-        eng.run([tengine.Request(1, [1, -2])])
+
+
+def test_oov_prompts_match_reference():
+    """Out-of-vocabulary ids (negative, V and above) are not refused: the
+    engine serves them with the tokens the reference's engine gives."""
+    jcfg, tcfg, jp, tp = both("qwen1.5-0.5b")
+    eng = tengine.ServingEngine(tcfg, tp, slots=1, max_len=8, device="cpu")
+    vocab = tcfg.vocab_size
+    jreqs, treqs = twin_requests([[1, -2], [3, vocab + 40, vocab]], 3)
+    jeng = jengine.ServingEngine(jcfg, jp, slots=1, max_len=8)
+    assert_same_tokens(jeng.run(jreqs), eng.run(treqs), jcfg, jp, 8)
 
 
 @pytest.mark.parametrize("policy", ["cost", "lru"])
