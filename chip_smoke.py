@@ -13,8 +13,14 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
   3. kernels — both CUDA kernels against their plain PyTorch versions on
                the card, exact per-block-pair equality over a sweep of
                d, eps, cross/self joins, ragged sizes, large coordinates,
-               batched stacks and pair lists with pad rows; kernel times
-               at k=8, Na=Nb=8192, d=3;
+               batched stacks and pair lists with pad rows, then the
+               walkers' edge cases (d = 1 and 4, coordinates at +-2^21
+               and beyond in one launch so both the fp32 and the int32
+               branch run, eps 0 and >= 2^24, lists that change task and
+               block_i inside each warp's range, sorted and shuffled, pad
+               rows mid-list); kernel times at k=8, Na=Nb=8192, d=3, back
+               to back and in a CUDA graph, with each kernel's share of
+               its bound;
   4. geo     — the clustered GEO workload on ``backend="torch_device"``
                under every prune mode, held to its exact match and
                block-pair counts;
@@ -26,7 +32,9 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                card, equal per query and in every non-timing summary
                key; the largest dense and pair-list batches of the run
                are replayed through kernel and plain version, compared
-               and timed. It runs at 50,000 cells per file (2.6 M
+               and timed (per launch back to back from Python, the JSON
+               ``ms``, and in a CUDA graph of 100 launches, ``graph_ms``,
+               the card's time alone). It runs at 50,000 cells per file (2.6 M
                cells): at the deployment's 100,000 the host-side
                bitmap refinement of prune="auto" alone outlasts the
                run's time limit;
@@ -130,14 +138,20 @@ REPLACES = {
 # Attention bounds, H100 SXM data sheet (NVIDIA, dense, 700 W): 989 TFLOP/s
 # bf16 on the tensor cores, 3.35 TB/s HBM3.
 BF16_FLOPS_PER_S = 989e12
-# The attention kernels' times before their redesign for Hopper, as
-# PERF.md §6 records them (an H100 80GB HBM3 at 700 W), quoted in the
-# replay log lines beside this run's; the kernels JSON line, which holds
-# only numbers measured in the run, points to PERF.md instead.
+# The kernels' times before their redesign for Hopper, as PERF.md §6
+# records them (an H100 80GB HBM3 at 700 W), quoted in the replay log
+# lines beside this run's; the kernels JSON line holds only this run's
+# numbers, and its "earlier" key points to PERF.md.
 EARLIER = {"flash_attention_fwd": "8.4915 ms before the redesign (fp32 on "
                                   "the CUDA cores)",
            "paged_attention": "0.0738 ms before the redesign (one CTA per "
-                              "(request, kv head))"}
+                              "(request, kv head))",
+           "simjoin_block_counts": "0.0468 ms before the redesign (one CTA "
+                                   "per block pair, int32, back to back)",
+           "simjoin_pruned_block_counts": "0.3185 ms before the redesign "
+                                          "(one CTA per row, int32, a "
+                                          "device sync per launch, back to "
+                                          "back)"}
 # The serving slice (the repo's llama3.2-3b config at full size).
 ARCH = "llama3.2-3b"
 PREFILL_B, PREFILL_S = 2, 4096
@@ -276,8 +290,102 @@ def clustered(rng, n, d, domain=153_064, spread=300):
     return (centers[pick] + rng.integers(-spread, spread + 1, (n, d)))
 
 
+def edge_cases(rng):
+    """The walkers' edge cases: (label, a sides, b sides (one (n, d)
+    array per task), pairs (k, P, 3), eps values, same). Task 0 of each range
+    case lies within +-2^21 (the fp32 branch), task 1 reaches beyond it in
+    the same launch (the int32 branch; at 2^29 a sum of four wraps past
+    2^31, as int32 sums do in the plain version); the long
+    lists change task and block_i inside every warp's range, in sorted and
+    shuffled order, with pad rows mid-list (garbage indices, valid 0), a
+    valid 2 row and, in self-joins, rows below the diagonal. The long
+    cases hold some 20,000 rows, several per walking warp."""
+    lim = simjoin.FP32_EXACT_LIMIT
+    edge = np.array([-lim, -lim + 1, -1, 0, 1, lim - 1, lim])
+    beyond = np.array([lim + 1, -lim - 1, (1 << 24) + 1, -(1 << 24) - 1,
+                       1 << 29, -(1 << 29)])
+    eps_all = (0, 1, 300, 1 << 22, (1 << 24) - 1, 1 << 24, (1 << 24) + 5,
+               2 ** 31 - 1)
+
+    def full_list(nab, nbb, same, shuffle):
+        bi, bj = np.meshgrid(np.arange(nab), np.arange(nbb), indexing="ij")
+        rows = np.stack([bi.ravel(), bj.ravel(), np.ones(bi.size, int)],
+                        axis=1)
+        if shuffle:
+            rows = rows[rng.permutation(len(rows))]
+        n_pad = max(2, len(rows) // 8)
+        pads = np.stack([rng.integers(-9, 99999, n_pad),
+                         rng.integers(-9, 99999, n_pad),
+                         np.zeros(n_pad, int)], axis=1)
+        at = np.sort(rng.choice(len(rows) + n_pad, n_pad, replace=False))
+        out = np.insert(rows, at - np.arange(n_pad), pads, axis=0)
+        out[rng.integers(0, len(out))] = [0, nbb - 1, 2]
+        if same:
+            out[rng.integers(0, len(out))] = [nab - 1, 0, 1]
+        return out.astype(np.int32)
+
+    cases = []
+    for d in (1, 2, 3, 4):
+        for same in (False, True):
+            t0a = np.where(rng.random((300, d)) < 0.5,
+                           rng.choice(edge, (300, d)),
+                           rng.integers(-lim, lim + 1, (300, d)))
+            t1a = t0a.copy()
+            far = rng.random((300, d)) < 0.15
+            t1a[far] = rng.choice(beyond, int(far.sum()))
+            t0b, t1b = (t0a, t1a) if same else (
+                rng.permutation(t0a), rng.permutation(t1a))
+            pairs = np.stack([full_list(3, 3, same, True) for _ in range(2)])
+            cases.append((f"d={d} same={same} +-2^21 and beyond",
+                          [t0a, t1a], [t0b, t1b], pairs, eps_all, same))
+    for shuffle in (False, True):
+        for same in (False, True):
+            sides = [clustered(rng, 6000, 3) for _ in range(8)]
+            other = sides if same else [
+                x + rng.integers(-150, 151, x.shape) for x in sides]
+            lists = [full_list(47, 47, same, shuffle) for _ in range(8)]
+            plen = max(len(x) for x in lists)
+            pairs = np.stack([np.pad(x, ((0, plen - len(x)), (0, 0)))
+                              for x in lists])
+            cases.append((f"k=8 47x47 blocks same={same} "
+                          f"{'shuffled' if shuffle else 'sorted'} list",
+                          sides, other, pairs, (0, 300, 5000), same))
+    return cases
+
+
+def phase_edges(dev):
+    """Both kernels against their plain versions on the edge cases;
+    returns (cases, max |kernel - plain|)."""
+    n_cases = 0
+    max_err = 0
+    for label, a_sides, b_sides, p_np, eps_all, same in edge_cases(
+            np.random.default_rng(7)):
+        a = stack(a_sides, simjoin.SENTINEL, dev)
+        b = stack(b_sides, -simjoin.SENTINEL, dev)
+        pairs = torch.from_numpy(p_np).to(dev)
+        for eps in eps_all:
+            want = {"dense": simjoin.simjoin_block_counts_plain(a, b, eps,
+                                                                same),
+                    "block": simjoin.simjoin_pruned_block_counts_plain(
+                        a, b, pairs, eps, same)}
+            got = {"dense": simjoin.simjoin_block_counts(a, b, eps, same),
+                   "block": simjoin.simjoin_pruned_block_counts(
+                       a, b, pairs, eps, same)}
+            torch.cuda.synchronize()
+            for kind in ("dense", "block"):
+                err = int((got[kind].long() - want[kind].long()).abs().max())
+                if err or not torch.equal(got[kind], want[kind]):
+                    raise AssertionError(
+                        f"edge case {label}: {kind} eps={eps} != plain "
+                        f"(max abs err {err})")
+                max_err = max(max_err, err)
+            n_cases += 1
+    return n_cases, max_err
+
+
 def phase_kernels(dev):
-    """Exact kernel-vs-plain sweep plus kernel rates at one large shape."""
+    """Exact kernel-vs-plain sweep, the walker's edge cases, and kernel
+    times at one large shape."""
     rng = np.random.default_rng(0)
     max_err = {"simjoin_block_counts": 0, "simjoin_pruned_block_counts": 0}
     pad_rows = 0
@@ -333,7 +441,15 @@ def phase_kernels(dev):
     log(f"kernels: {cases} sweep cases + duplicates + batched stacks, "
         f"{pad_rows} pad rows, kernel == plain bit for bit, "
         f"max_abs_err {max_err}")
-    # Rates at one large shape: k=8 tasks of 8192 x 8192 cells, d=3.
+    n_edge, edge_err = phase_edges(dev)
+    for name in max_err:
+        max_err[name] = max(max_err[name], edge_err)
+    log(f"kernels: {n_edge} edge cases (d = 1..4, coordinates at +-2^21 and "
+        f"beyond in one launch, eps 0 .. 2^31 - 1, lists changing task and "
+        f"block_i inside each warp's range, sorted and shuffled, pad rows "
+        f"mid-list), both kernels: kernel == plain bit for bit, "
+        f"max_abs_err {edge_err}")
+    # Times at one large shape: k=8 tasks of 8192 x 8192 cells, d=3.
     k, n, d = 8, 8192, 3
     a = torch.from_numpy(np.stack([ops.pad_cm_np(clustered(rng, n, d),
                                                  simjoin.SENTINEL)
@@ -347,15 +463,20 @@ def phase_kernels(dev):
                     axis=1).astype(np.int32)
     pairs = torch.from_numpy(np.stack([full] * k)).to(dev)
     pairs_n = k * n * n
-    dense_ms = cuda_ms(lambda: simjoin.simjoin_block_counts(a, b, 300,
-                                                            False))
-    pruned_ms = cuda_ms(lambda: simjoin.simjoin_pruned_block_counts(
-        a, b, pairs, 300, False))
-    log(f"kernels: k={k} Na=Nb={n} d={d} ({pairs_n} cell pairs): "
-        f"dense {dense_ms:.4f} ms = {pairs_n / dense_ms * 1e3:.4e} "
-        f"cell pairs/s; pair-list (all {nb * nb} block pairs) "
-        f"{pruned_ms:.4f} ms = {pairs_n / pruned_ms * 1e3:.4e} cell "
-        f"pairs/s [{card_label()}]")
+    bound = pairs_n * cell_pair_ops(d) / OPS_PER_S * 1e3
+    def dense():
+        return simjoin.simjoin_block_counts(a, b, 300, False)
+
+    def listed():
+        return simjoin.simjoin_pruned_block_counts(a, b, pairs, 300, False)
+    dm, dg = cuda_ms(dense), graph_ms(dense)
+    pm, pg = cuda_ms(listed), graph_ms(listed)
+    log(f"kernels: k={k} Na=Nb={n} d={d} ({pairs_n} cell pairs): dense "
+        f"{dm:.4f} ms back to back ({dg:.4f} ms in a CUDA graph) = "
+        f"{pairs_n / dg * 1e3:.4e} cell pairs/s = {bound / dg:.4f} of its "
+        f"{bound:.6f} ms bound; pair-list (all {nb * nb} block pairs) "
+        f"{pm:.4f} ms ({pg:.4f} ms in a graph) = {bound / pg:.4f} of the "
+        f"bound, {pg / dg:.4f} x dense [{card_label()}]")
     return max_err
 
 
@@ -532,8 +653,11 @@ def phase_ptf(root, tag, cells, prune_mode, plain_budget_s, main_path):
 
 def replay(largest):
     """The main path's largest batch per kernel through kernel and plain
-    version: exact comparison, times, and the bound."""
+    version: exact comparison, times (back to back from Python, as the
+    path launches it, and in a CUDA graph of 100 launches, the card's time
+    alone), and the bound."""
     rows = []
+    label = card_label()
     for kind, name in (("dense", "simjoin_block_counts"),
                        ("block", "simjoin_pruned_block_counts")):
         work, arrays, eps, same = largest[kind]
@@ -557,20 +681,25 @@ def replay(largest):
         err = int((got - want).abs().max())
         if err or not torch.equal(got, want):
             raise AssertionError(f"{name} != plain at the main-path shape")
-        ms = cuda_ms(kern)
+        ms = cuda_ms(kern, reps=100)
+        in_graph_ms = graph_ms(kern)
         plain_ms = cuda_ms(plain, reps=3)
         d = arrays[0].shape[1]
         ops_count = work * cell_pair_ops(d)
         bytes_moved = sum(x.nbytes for x in arrays) + got.nbytes
         ops_ms = ops_count / OPS_PER_S * 1e3
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
         shapes = [tuple(x.shape) for x in arrays]
         log(f"replay[{name}]: shapes {shapes}, eps {eps}, same {same}, "
-            f"{work} cell pairs, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, bound {max(ops_ms, bytes_ms):.6f} ms [{card_label()}]")
-        rows.append({"name": name, "ms": ms, "plain_ms": plain_ms,
-                     "max_abs_err": err,
-                     "bound_ms": max(ops_ms, bytes_ms),
+            f"{work} cell pairs, kernel {ms:.4f} ms per launch back to back "
+            f"from Python, {in_graph_ms:.4f} ms in a CUDA graph, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.6f} ms = "
+            f"{bound / in_graph_ms:.4f} of the graph time; earlier "
+            f"{EARLIER[name]} [{label}]")
+        rows.append({"name": name, "ms": ms, "graph_ms": in_graph_ms,
+                     "plain_ms": plain_ms, "max_abs_err": err,
+                     "bound_ms": bound,
                      "bound_by": ("operations" if ops_ms >= bytes_ms
                                   else "bytes")})
     return rows
@@ -1291,9 +1420,10 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": KERNEL_SRC,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(row["max_abs_err"], sweep_err[name]),
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None})
+            "ms": row["ms"], "graph_ms": row["graph_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "earlier": "PERF.md §6"})
 
     attn_err = phase_attention_kernels(dev)
     cfg = get_config(ARCH)

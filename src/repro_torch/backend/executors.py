@@ -433,6 +433,10 @@ class TorchJoinExecutor:
                                 for i in idxs])
             p_stack = np.stack([self._prune.pad_pairs(prepped[i][2], plen)
                                 for i in idxs])
+            # The lists' range check, once per prepared batch on the
+            # host: the kernel path reads nothing back from the card.
+            simjoin.check_pairs_in_grid(p_stack, na // self._block,
+                                        nb // self._block)
             batches.append(PreparedBatch(
                 node=node, same=same, idxs=list(idxs),
                 arrays=(a_stack, b_stack, p_stack),

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.simjoin.simjoin import (BLOCK, SENTINEL,
+                                                 check_pairs_in_grid,
                                                  simjoin_block_counts,
                                                  simjoin_pruned_block_counts)
 
@@ -115,6 +116,16 @@ def count_similar_pairs_batch(a_stack: ArrayLike, b_stack: ArrayLike,
     return counts.sum(dim=(1, 2), dtype=torch.int32)
 
 
+def _check_host_pairs(a: ArrayLike, b: ArrayLike, pairs: ArrayLike) -> None:
+    """The range check of a pair list that arrives as numpy, on the host
+    before upload (the kernel path does not read the list back). On the
+    plain route the plain version checks the same list once more; that
+    second check is kept, as it guards direct calls of the plain version."""
+    if isinstance(pairs, np.ndarray):
+        check_pairs_in_grid(pairs, a.shape[-1] // BLOCK,
+                            b.shape[-1] // BLOCK)
+
+
 def count_similar_pairs_pruned(a_cm: ArrayLike, b_cm: ArrayLike,
                                pairs: ArrayLike, eps: int, same: bool,
                                device: DeviceLike = "cuda",
@@ -125,6 +136,7 @@ def count_similar_pairs_pruned(a_cm: ArrayLike, b_cm: ArrayLike,
     :func:`pad_cm_np`), ``pairs`` the (P, 3) live block-pair list from
     ``prune.build_block_pairs``. Returns the 0-d int32 match count."""
     dev = resolve_device(device)
+    _check_host_pairs(a_cm, b_cm, pairs)
     counts = simjoin_pruned_block_counts(
         _to_int32(a_cm, dev)[None], _to_int32(b_cm, dev)[None],
         _to_int32(pairs, dev)[None], eps, same, impl=impl)
@@ -140,6 +152,7 @@ def count_similar_pairs_pruned_batch(a_stack: ArrayLike, b_stack: ArrayLike,
     element's live pairs padded to the bucket's P with ``valid == 0``
     rows, see ``prune.pad_pairs``). Returns (k,) int32 match counts."""
     dev = resolve_device(device)
+    _check_host_pairs(a_stack, b_stack, pairs_stack)
     counts = simjoin_pruned_block_counts(
         _to_int32(a_stack, dev), _to_int32(b_stack, dev),
         _to_int32(pairs_stack, dev), eps, same, impl=impl)

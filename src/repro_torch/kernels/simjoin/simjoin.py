@@ -23,6 +23,15 @@ the plain PyTorch version beside it (``*_plain``), which repeats the
 kernel's int32 arithmetic block pair by block pair. There is no fallback
 between the two: a kernel that fails to build or launch raises.
 
+On the kernel path a wrapper checks only shapes, types, devices and
+contiguity, which need nothing from the card, so it never waits for the
+device and can be captured in a CUDA graph. The range check of a pair
+list (every live row inside the grid) runs on the host, where the list is
+built: :func:`check_pairs_in_grid`, called by the executor once per
+prepared batch and by ``ops`` for numpy lists. A live row outside the
+grid that reaches the kernel anyway traps it (the fault surfaces at the
+next synchronize); the plain version raises ``ValueError`` for it.
+
 The kernels are compiled from ``simjoin.cu`` with ``nvcc`` for
 ``sm_90a`` at their first CUDA call by ``repro_torch.kernels._build``
 (a shared library with a plain C interface in
@@ -33,12 +42,19 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Dict
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import CudaLibrary
 
 BLOCK = 128
 SENTINEL = 1 << 20
+
+#: A tile pair whose coordinates all lie within +-FP32_EXACT_LIMIT runs
+#: the kernels' float32 branch: each |a - b| <= 2^22 and a sum of d <= 4
+#: of them <= 2^24, integers that float32 holds exactly. Any other tile
+#: pair runs the int32 branch. Both give the plain version's counts.
+FP32_EXACT_LIMIT = 1 << 21
 
 #: ``impl`` values: ``"kernel"`` launches the CUDA kernel for CUDA tensors
 #: (the plain version serves CPU tensors); ``"plain"`` always runs the
@@ -55,7 +71,7 @@ SOURCE = Path(__file__).with_name("simjoin.cu")
 # (cells x cells) distance tile), so large chunk pairs run in slices.
 _PLAIN_STEP_ELEMS = 1 << 25
 
-#: The compiled ``simjoin.cu`` and its two launchers.
+#: The compiled ``simjoin.cu``: its two launchers.
 LIBRARY = CudaLibrary("simjoin", SOURCE, {
     "simjoin_dense_launch": (("ptr", "ptr", "ptr", "i64", "i64", "i64", "i64",
                               "i32", "i32", "ptr"), "i32"),
@@ -205,11 +221,25 @@ def simjoin_pruned_block_counts_plain(a: torch.Tensor, b: torch.Tensor,
     return out.view(k, n_pairs)
 
 
-def _check_pairs(a: torch.Tensor, b: torch.Tensor,
-                 pairs: torch.Tensor) -> None:
-    """The pair stack the pruned kernel takes: (k, P, 3) int32, P > 0, on the stacks' device, and every valid row's
-    block indices inside the two grids (the kernel never reads out of
-    range)."""
+def check_pairs_in_grid(pairs: np.ndarray, na_blocks: int,
+                        nb_blocks: int) -> None:
+    """Host-side range check of a (P, 3) pair list or (k, P, 3) stack:
+    raise ``ValueError`` when a live row (``valid != 0``) names a block
+    outside the ``na_blocks x nb_blocks`` grid. The kernel path reads
+    nothing back from the card, so this runs where the host builds the
+    list (the executor's prepared batch, ``ops`` for numpy lists)."""
+    p = np.asarray(pairs)
+    live = p[..., 2] != 0
+    bad = live & ((p[..., 0] < 0) | (p[..., 0] >= na_blocks)
+                  | (p[..., 1] < 0) | (p[..., 1] >= nb_blocks))
+    if bad.any():
+        raise ValueError(f"pair list names a block outside the grid "
+                         f"({na_blocks} x {nb_blocks})")
+
+
+def _check_pair_stack(a: torch.Tensor, pairs: torch.Tensor) -> None:
+    """The pair stack the pruned kernel takes: (k, P, 3) int32, P > 0, on
+    the stacks' device. Shapes only: nothing is read from the card."""
     if pairs.dim() != 3 or pairs.shape[2] != 3 or pairs.shape[0] != \
             a.shape[0]:
         raise ValueError(f"expected a (k, P, 3) pair stack for k="
@@ -221,13 +251,27 @@ def _check_pairs(a: torch.Tensor, b: torch.Tensor,
     if pairs.device != a.device:
         raise ValueError(f"pair stack on {pairs.device}, stacks on "
                          f"{a.device}")
-    live = pairs[..., 2] != 0
-    bad = live & ((pairs[..., 0] < 0) | (pairs[..., 0] >= a.shape[2] // BLOCK)
-                  | (pairs[..., 1] < 0)
-                  | (pairs[..., 1] >= b.shape[2] // BLOCK))
-    if bool(bad.any()):
-        raise ValueError("pair list names a block outside the grid "
-                         f"({a.shape[2] // BLOCK} x {b.shape[2] // BLOCK})")
+
+
+def _check_pairs(a: torch.Tensor, b: torch.Tensor,
+                 pairs: torch.Tensor) -> None:
+    """The plain version's pair-stack check: :func:`_check_pair_stack`
+    plus :func:`check_pairs_in_grid` on a host copy of the list (which
+    waits for the device)."""
+    _check_pair_stack(a, pairs)
+    check_pairs_in_grid(pairs.cpu().numpy(), a.shape[2] // BLOCK,
+                        b.shape[2] // BLOCK)
+
+
+def _check_kernel_shape(d: int, rows: int) -> None:
+    """What the CUDA kernels take beyond the stacks: 1 <= d <= 4 and
+    fewer than 2^30 rows (block pairs or list rows) per launch."""
+    if not 1 <= d <= 4:
+        raise ValueError(f"the CUDA simjoin kernels take 1 <= d <= 4, "
+                         f"got d={d}")
+    if rows >= 2 ** 30:
+        raise ValueError(f"{rows} rows in one launch; the kernels take "
+                         f"fewer than 2^30")
 
 
 # ---------------------------------------------------------- wrappers
@@ -245,11 +289,7 @@ def simjoin_block_counts(a: torch.Tensor, b: torch.Tensor, eps: int,
     eps = _check_eps(eps)
     k, d, na = a.shape
     nb = b.shape[2]
-    if not (1 <= d <= 4):
-        raise ValueError(f"the CUDA simjoin kernels take 1 <= d <= 4, "
-                         f"got d={d}")
-    if k > 65535 or na // BLOCK > 65535:
-        raise ValueError(f"grid too large: k={k}, Na/BLOCK={na // BLOCK}")
+    _check_kernel_shape(d, k * (na // BLOCK) * (nb // BLOCK))
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty((k, na // BLOCK, nb // BLOCK), dtype=torch.int32,
                       device=a.device)
@@ -274,24 +314,24 @@ def simjoin_pruned_block_counts(a: torch.Tensor, b: torch.Tensor,
     and sentinel-padded on host (``prune.spatial_sort`` +
     ``ops.pad_cm_np``); ``pairs``: (k, P, 3) int32 ``(block_i, block_j,
     valid)`` rows from ``prune.build_block_pairs`` padded by
-    ``prune.pad_pairs``. Returns (k, P) int32 per-row counts (zero for
-    ``valid == 0`` rows). Launches the CUDA kernel on CUDA tensors, the
-    plain version on CPU tensors or under ``impl="plain"``."""
+    ``prune.pad_pairs``, in any order. Returns (k, P) int32 per-row
+    counts times ``valid`` (zero for ``valid == 0`` rows). Launches the
+    CUDA kernel on CUDA tensors (the list's range is checked on the host,
+    :func:`check_pairs_in_grid`), the plain version on CPU tensors or
+    under ``impl="plain"``."""
     if not _use_kernel(a, impl):
         return simjoin_pruned_block_counts_plain(a, b, pairs, eps, same)
     _check_stacks(a, b)
-    _check_pairs(a, b, pairs)
+    _check_pair_stack(a, pairs)
     eps = _check_eps(eps)
     k, d, na = a.shape
     nb = b.shape[2]
     n_pairs = pairs.shape[1]
-    if not (1 <= d <= 4):
-        raise ValueError(f"the CUDA simjoin kernels take 1 <= d <= 4, "
-                         f"got d={d}")
-    if k > 65535:
-        raise ValueError(f"grid too large: k={k}")
+    _check_kernel_shape(d, k * n_pairs)
     a, b, pairs = a.contiguous(), b.contiguous(), pairs.contiguous()
     out = torch.empty((k, n_pairs), dtype=torch.int32, device=a.device)
+    if out.numel() == 0:
+        return out
     lib = build()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
