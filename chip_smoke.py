@@ -6,7 +6,7 @@ Needs one CUDA card (an H100 for the kernels' ``sm_90a`` build) and the
 CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
 
   1. device  — the card's name and power limit (``nvidia-smi``);
-  2. build   — compile the three CUDA sources with nvcc, one process each
+  2. build   — compile the four CUDA sources with nvcc, one process each
                in parallel (seconds, ptxas registers / static shared
                memory / spills of every kernel, and the dynamic shared
                memory of each flash kernel);
@@ -73,7 +73,36 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                the split count it chose, kernel time per launch back
                to back from Python (the JSON ``ms``) and in a CUDA graph
                of 100 launches (``graph_ms``: device time, free of the
-               host's launch cost), plain and SDPA times, bound.
+               host's launch cost), plain and SDPA times, bound;
+ 11. train-kernels — the flash backward kernels against
+               ``attention_bwd_ref`` on the same forward (out, lse): at
+               the training shape (B 2, S 4096, 24/8 heads of 128,
+               causal, bf16) and on an edge sweep (fp32 and bf16, every
+               head dim, GQA rep 1 and 3, ragged non-causal Sk,
+               q_offset, padded S through autograd of the model's
+               blockwise path); the forward kernels' lse against the
+               plain one; two launches equal bit for bit;
+ 12. train   — llama3.2-3b trained at full width and depth (bf16
+               params, fp32 AdamW moments, remat per layer) on B 2 x S
+               4096 batches from the raw-array token pipeline (8 HDF5
+               files of documents up to 4097 tokens from ``--seed``, 4
+               hosts, cost policy): the first step's loss, grad norm and
+               every leaf's gradient against the plain versions' within
+               the stated bounds, beside the floor of two plain
+               backward formulations; then 4 timed steps of
+               ``make_train_step`` with the launch counts set to 0 before
+               and read after (flash forward twice a layer under remat,
+               the backward once a layer), step time, tokens/s, MFU, peak
+               memory, one more step under torch.profiler (busy and idle
+               share, the flash kernels' device time), PipelineStats;
+ 13. replay[flash_attention_bwd] — the backward at the training shape:
+               kernel (back to back and in a CUDA graph), plain,
+               SDPA's backward alone, bound;
+ 14. resume  — the same model reduced (d_model 512, 2 layers, vocab
+               512) at S 4096: 4 steps with a checkpoint after step 2;
+               params, moments and the pipeline's state restored into
+               fresh tensors and a fresh pipeline, steps 3-4 again:
+               losses and final parameters equal bit for bit.
 
 Prints the kernels' JSON record and the card's name and power limit on
 the two lines before the last, and ``{"ok": true, "device": ...}`` last.
@@ -82,6 +111,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import gc
 import json
 import subprocess
 import sys
@@ -104,10 +135,14 @@ from repro_torch.kernels._build import build_all  # noqa: E402
 from repro_torch.kernels.simjoin import ops, prune, simjoin  # noqa: E402
 from repro_torch.kernels.simjoin.ref import count_pairs_ref  # noqa: E402
 from repro_torch.configs import get as get_config  # noqa: E402
+from repro_torch.configs import reduced  # noqa: E402
+from repro_torch.data.pipeline import (RawArrayTokenPipeline,  # noqa: E402
+                                       make_token_corpus)
 from repro_torch.kernels.flash_attention import \
     flash_attention as flash  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_ref)
 from repro_torch.kernels.paged_attention import \
     paged_attention as paged  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import \
@@ -118,12 +153,22 @@ from repro_torch.models.model import (decode_step,  # noqa: E402
                                       init_decode_state, init_params)
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
 from repro_torch.serve.serve_step import make_prefill_step  # noqa: E402
+from repro_torch.train.checkpoint import (AsyncCheckpointer,  # noqa: E402
+                                          latest_checkpoint,
+                                          restore_checkpoint)
+from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
+                                         adamw_init, adamw_update)
+from repro_torch.train.train_step import (  # noqa: E402
+    loss_fn, make_train_step, reference_decay_mask, value_and_grad)
+from repro_torch.train.tree import leaves, named_leaves, tree_map  # noqa: E402
 
 N_NODES = 8
 KERNEL_SRC = "src/repro_torch/kernels/simjoin/simjoin.cu"
 SOURCES = {
     "flash_attention_fwd":
         "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+    "flash_attention_bwd":
+        "src/repro_torch/kernels/flash_attention/flash_attention_bwd.cu",
     "paged_attention":
         "src/repro_torch/kernels/paged_attention/paged_attention.cu",
 }
@@ -134,6 +179,8 @@ REPLACES = {
         "src/repro/kernels/flash_attention/flash_attention.py:61",
     "paged_attention":
         "src/repro/kernels/paged_attention/paged_attention.py:71",
+    # No Pallas backward: the reference's custom VJP in plain JAX.
+    "flash_attention_bwd": "src/repro/models/attention.py:150",
 }
 # Attention bounds, H100 SXM data sheet (NVIDIA, dense, 700 W): 989 TFLOP/s
 # bf16 on the tensor cores, 3.35 TB/s HBM3.
@@ -178,6 +225,35 @@ MODEL_MAX_ABS = 0.2
 # the float32 lanes), so ops / 67e12 is a least time. 3.35 TB/s HBM3.
 OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# The training slice: the same config at full width and depth, B x S
+# tokens a step from the raw-array token pipeline (documents of up to
+# S + 1 tokens, so every position has a label), TRAIN_STEPS timed steps.
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4
+TRAIN_SAMPLES, TRAIN_FILES, TRAIN_HOSTS = 8, 8, 4
+TRAIN_HOST_BUDGET = 64 << 20
+# The resume check's reduced size (S stays TRAIN_S, so "auto" attention
+# takes the kernels).
+RESUME = dict(d_model=512, n_periods=2, vocab=512)
+# The backward kernels against attention_bwd_ref on the same (out, lse),
+# relative to each gradient's largest magnitude: both sum in fp32 (1e-4
+# for the order of the sums) and round once to the inputs' dtype (a bf16
+# rounding step is 2^-8 of a value). Through autograd of the model's
+# blockwise path the forwards differ as well (the bf16 kernel rounds P to
+# bf16 for its P V product): the bf16 slack of the CPU tests, 5e-2.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+AUTOGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# The first training step through the kernels against the same step on
+# the plain versions, at full depth in bf16: the loss, the global grad
+# norm, and every leaf's gradient by relative L2 error. The two steps
+# differ where the prefill's logits do (up to the 3e-2 relative L2 bound
+# above), carried back through 28 layers; a wiring fault (a missing GQA
+# sum, a wrong scale, a dropped padded row) gives errors of order 1. The
+# run prints the floor beside them: the plain step with the backward of
+# attention_bwd_ref against the plain step with autograd through
+# attention_ref, which share their forward.
+TRAIN_LOSS_REL = 1e-3
+TRAIN_GNORM_REL = 3e-2
+TRAIN_LEAF_REL_L2 = 0.1
 
 
 def cell_pair_ops(d: int) -> int:
@@ -949,7 +1025,8 @@ def phase_attention_kernels(dev):
 
 def zero_launches():
     """Set every attention-kernel launch count to 0."""
-    flash.LAUNCHES["flash_attention_fwd"] = 0
+    for name in flash.LAUNCHES:
+        flash.LAUNCHES[name] = 0
     paged.LAUNCHES["paged_attention"] = 0
 
 
@@ -1355,12 +1432,390 @@ def phase_attention_replay(dev, paged_args):
     return rows
 
 
-def _leaves(tree):
-    """Every tensor of a nested dict / list of parameters."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    items = tree.values() if isinstance(tree, dict) else tree
-    return [t for x in items for t in _leaves(x)]
+# ------------------------------------------------------- training slice
+
+
+def grad_close(got, want, tol, what):
+    """Max |got - want| of each (dq, dk, dv) pair after checking it
+    against ``tol`` x the largest |want| of the same gradient."""
+    worst = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        if not torch.isfinite(g).all() or err > tol * max(scale, 1e-30):
+            raise AssertionError(f"{what} {name}: max abs err {err} beyond "
+                                 f"{tol} x {scale}")
+        worst = max(worst, err)
+    return worst
+
+
+def bwd_case(rng, dev, b, sq, sk, h, hk, d, dtype, causal, q_offset=0):
+    """One ``flash_attention_bwd`` call against ``attention_bwd_ref`` on
+    the same forward (out, lse), heads-first; checks the forward's lse
+    against the plain one and the backward's bits against a second
+    launch. Returns the max abs error and the inputs."""
+    q = randn(rng, (b, h, sq, d), dtype, dev)
+    k = randn(rng, (b, hk, sk, d), dtype, dev)
+    v = randn(rng, (b, hk, sk, d), dtype, dev)
+    dout = randn(rng, (b, h, sq, d), dtype, dev)
+    what = (f"flash bwd B{b} Sq{sq} Sk{sk} H{h}/{hk} D{d} {dtype} "
+            f"causal={causal} q_offset={q_offset}")
+    out, lse = flash.flash_attention_fwd(q, k, v, causal=causal, bq=1, bk=1,
+                                         q_offset=q_offset, return_lse=True)
+    _, lse_plain = attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                 return_lse=True)
+    close(lse, lse_plain, 1e-3, 1e-4, f"{what}: lse")
+    got = flash.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                    q_offset=q_offset)
+    again = flash.flash_attention_bwd(q, k, v, out, lse, dout,
+                                      causal=causal, q_offset=q_offset)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{what}: two launches differ")
+    want = attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                             q_offset=q_offset)
+    err = grad_close(got, want, BWD_TOL[dtype], what)
+    return err, (q, k, v, out, lse, dout)
+
+
+def phase_train_kernels(dev):
+    """The backward kernels against their plain version at the training
+    shape and on an edge sweep; returns the largest error."""
+    rng = np.random.default_rng(15)
+    cfg = get_config(ARCH)
+    hd = cfg.resolved_head_dim
+    err, _ = bwd_case(rng, dev, TRAIN_B, TRAIN_S, TRAIN_S, cfg.n_heads,
+                      cfg.n_kv_heads, hd, torch.bfloat16, True)
+    log(f"train-kernels: flash_attention_bwd at the training shape (B "
+        f"{TRAIN_B}, S {TRAIN_S}, H {cfg.n_heads}/{cfg.n_kv_heads}, D {hd}, "
+        f"causal, bf16) == attention_bwd_ref within {BWD_TOL[torch.bfloat16]}"
+        f" x max |g|, two launches equal bit for bit, max_abs_err {err}")
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in flash.HEAD_DIMS:
+            for b, sq, sk, h, hk, causal, off in (
+                    (2, 256, 256, 4, 4, True, 0),      # rep 1
+                    (1, 320, 320, 6, 2, True, 0),      # rep 3
+                    (1, 200, 136, 3, 1, False, 0),     # ragged, non-causal
+                    (1, 64, 256, 2, 2, True, 192)):    # q_offset
+                e, _ = bwd_case(rng, dev, b, sq, sk, h, hk, d, dtype, causal,
+                                off)
+                err = max(err, e)
+                cases += 1
+    # Padded S through the model's entry point: autograd of the blockwise
+    # path (the wrapper pads S = 130 to 256) against the plain one.
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal, s in ((True, 130), (False, 256)):
+            t = [randn(rng, (1, s, hh, 64), dtype, dev).requires_grad_(True)
+                 for hh in (6, 2, 2)]
+            dout = randn(rng, (1, s, 6, 64), dtype, dev)
+            got = torch.autograd.grad(model_attention._blockwise_attention(
+                *t, causal, "kernel"), t, dout)
+            want = torch.autograd.grad(model_attention._blockwise_attention(
+                *t, causal, "plain"), t, dout)
+            err = max(err, grad_close(got, want, AUTOGRAD_TOL[dtype],
+                                      f"blockwise autograd S{s} {dtype} "
+                                      f"causal={causal}"))
+            cases += 1
+    log(f"train-kernels: {cases} edge cases (fp32 and bf16, D {flash.HEAD_DIMS}"
+        f", GQA rep 1 and 3, ragged non-causal Sk, q_offset 192, padded S "
+        f"through autograd of the blockwise path): kernel == plain within "
+        f"{BWD_TOL[torch.float32]} (fp32) / {BWD_TOL[torch.bfloat16]} (bf16) "
+        f"x max |g| ({AUTOGRAD_TOL[torch.bfloat16]} through autograd, where "
+        f"the forwards differ too), forward lse == plain, bits equal run to "
+        f"run, max_abs_err {err}")
+    return err
+
+
+def train_pipeline(root, vocab, seed):
+    """The raw-array token pipeline of the train phase: a corpus of
+    documents up to S + 1 tokens from ``seed`` in HDF5 files over 4
+    hosts, batches of B x S under the cost policy."""
+    files, _ = make_token_corpus(TRAIN_SAMPLES, TRAIN_S + 1, vocab,
+                                 TRAIN_FILES, seed)
+    catalog, data = build_catalog(files, str(root), "hdf5", TRAIN_HOSTS)
+    return RawArrayTokenPipeline(catalog, FileReader(catalog, data),
+                                 n_hosts=TRAIN_HOSTS,
+                                 host_budget_bytes=TRAIN_HOST_BUDGET,
+                                 batch=TRAIN_B, seq=TRAIN_S, policy="cost")
+
+
+def on_card(batch, dev):
+    """A pipeline batch (numpy) as card tensors."""
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def rel_l2(got, want):
+    """||got - want||_2 / ||want||_2 in fp32."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp(min=1e-30))
+
+
+def compare_grads(names, got, want):
+    """(largest relative L2 error over the leaves, its leaf, the global
+    norms of got and want) of two gradient lists."""
+    errs = [(rel_l2(g, w), n) for n, g, w in zip(names, got, want)]
+    worst = max(errs)
+    norm = lambda gs: float(torch.sqrt(sum(  # noqa: E731
+        torch.sum(torch.square(g.float())) for g in gs)))
+    return worst[0], worst[1], norm(got), norm(want)
+
+
+def autograd_attention_ref(q, k, v, *, causal=True, bq=128, bk=128,
+                           impl="plain"):
+    """The floor's attention: ``attention_ref`` differentiated by
+    autograd, in the model's (B, S, H, D) layout (S needs no padding at
+    the train phase's shape)."""
+    out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal)
+    return out.transpose(1, 2)
+
+
+def phase_train(dev, root, seed):
+    """llama3.2-3b trained at full width and depth from the raw-array
+    pipeline: the first step's gradients against the plain versions' (and
+    the floor), then TRAIN_STEPS steps of ``make_train_step(remat=True)``
+    timed, one more profiled. Returns the launches of the timed steps."""
+    cfg = get_config(ARCH)
+    label = card_label()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pipeline = train_pipeline(root, cfg.vocab_size, seed)
+    log(f"train: pipeline over {TRAIN_SAMPLES} documents of up to "
+        f"{TRAIN_S + 1} tokens in {TRAIN_FILES} hdf5 files on {TRAIN_HOSTS} "
+        f"hosts, built in {time.perf_counter() - t0:.3f} s")
+    params = init_params(cfg, seed=seed, device=dev)
+    names = [n for n, _ in named_leaves(params)]
+    n_params = sum(t.numel() for t in leaves(params))
+    batch = on_card(pipeline.next_batch(), dev)
+
+    # The first step's gradients: kernels, plain versions, and the floor
+    # (two plain formulations of the backward).
+    def grads(impl, attention=None):
+        lfn = functools.partial(loss_fn, cfg=cfg, remat=True, impl=impl)
+        saved = model_attention.flash_attention
+        if attention is not None:
+            model_attention.flash_attention = attention
+        try:
+            t = time.perf_counter()
+            metrics, g = value_and_grad(params, lfn, batch)
+            torch.cuda.synchronize()
+            return float(metrics["loss"]), g, time.perf_counter() - t
+        finally:
+            model_attention.flash_attention = saved
+
+    loss_k, g_k, wall_k = grads("kernel")
+    loss_p, g_p, wall_p = grads("plain")
+    err, leaf, norm_k, norm_p = compare_grads(names, g_k, g_p)
+    del g_k
+    loss_f, g_f, wall_f = grads("plain", autograd_attention_ref)
+    floor_err, floor_leaf, norm_f, _ = compare_grads(names, g_f, g_p)
+    del g_f, g_p
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    norm_rel = abs(norm_k - norm_p) / norm_p
+    if not (np.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL and
+            norm_rel <= TRAIN_GNORM_REL and err <= TRAIN_LEAF_REL_L2):
+        raise AssertionError(
+            f"train: kernel step vs plain step: loss {loss_k} vs {loss_p} "
+            f"(relative {loss_rel}, bound {TRAIN_LOSS_REL}), grad norm "
+            f"{norm_k} vs {norm_p} (relative {norm_rel}, bound "
+            f"{TRAIN_GNORM_REL}), worst leaf {leaf} relative L2 {err} "
+            f"(bound {TRAIN_LEAF_REL_L2})")
+    log(f"train[plain]: first step's gradients of all {len(names)} leaves "
+        f"({n_params} parameters) from one batch: kernel vs plain loss "
+        f"{loss_k} vs {loss_p} (relative {loss_rel}, bound "
+        f"{TRAIN_LOSS_REL}), grad norm {norm_k} vs {norm_p} (relative "
+        f"{norm_rel}, bound {TRAIN_GNORM_REL}), worst leaf {leaf} relative "
+        f"L2 {err} (bound {TRAIN_LEAF_REL_L2}); floor (attention_bwd_ref vs "
+        f"autograd through attention_ref): loss {loss_f}, grad norm {norm_f},"
+        f" worst leaf {floor_leaf} relative L2 {floor_err}; walls kernel "
+        f"{wall_k:.3f} s, plain {wall_p:.3f} s, floor {wall_f:.3f} s")
+
+    # The timed steps: the main path of the training slice.
+    opt_cfg = OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
+                              total_steps=TRAIN_STEPS + 1)
+    opt_state = adamw_init(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, data_s = [], [], 0.0
+    zero_launches()
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        batch = on_card(pipeline.next_batch(), dev)
+        data_s += time.perf_counter() - t
+        t = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))   # synchronizes
+        walls.append(time.perf_counter() - t)
+    launches = {name: flash.LAUNCHES[name] for name in flash.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    if launches != want or paged.LAUNCHES["paged_attention"] or \
+            not all(np.isfinite(losses)):
+        raise AssertionError(f"train: launches {launches} (want {want}, "
+                             f"forward twice a layer under remat), paged "
+                             f"{paged.LAUNCHES['paged_attention']}, losses "
+                             f"{losses}")
+    med = float(np.median(walls[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    live = TRAIN_B * cfg.n_heads * TRAIN_S * (TRAIN_S + 1) // 2
+    model_flops = 6 * n_params * tokens
+    attn_flops = 12 * cfg.resolved_head_dim * live * cfg.n_layers
+    mfu = (model_flops + attn_flops) / med / BF16_FLOPS_PER_S
+    log(f"train: {ARCH} B={TRAIN_B} S={TRAIN_S}, bf16 params, fp32 AdamW "
+        f"moments, remat per layer, {TRAIN_STEPS} steps: losses {losses}; "
+        f"step walls {[round(w, 6) for w in walls]} s, median after the "
+        f"first {med:.6f} s = {tokens / med:.1f} tokens/s; MFU {mfu:.6f} "
+        f"({model_flops:.4e} model flops 6 N T + {attn_flops:.4e} attention "
+        f"flops 12 D per live pair, no remat, against {BF16_FLOPS_PER_S:.3e}"
+        f" flop/s); pipeline {data_s:.3f} s in all; launches {launches}; "
+        f"max_memory_allocated {peak} bytes (params, moments and steps; "
+        f"{base} bytes were allocated before the phase began) [{label}]")
+
+    # One step in its two halves, each timed alone.
+    batch = on_card(pipeline.next_batch(), dev)
+    t = time.perf_counter()
+    _, g = value_and_grad(params, functools.partial(
+        loss_fn, cfg=cfg, remat=True), batch)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t
+    t = time.perf_counter()
+    it = iter(g)
+    adamw_update(params, tree_map(lambda _: next(it), params), opt_state,
+                 opt_cfg, reference_decay_mask(params))
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t
+    del g
+    log(f"train: one step in halves: loss and gradients (forward, "
+        f"recompute, backward) {grad_s:.6f} s, AdamW update {opt_s:.6f} s "
+        f"[{label}]")
+
+    def one_step():
+        batch = on_card(pipeline.next_batch(), dev)
+        out = step(params, opt_state, batch)
+        return float(out[2]["loss"])
+
+    t = time.perf_counter()
+    one_step()
+    wall = time.perf_counter() - t
+    _, pwall, activity = profiled(one_step)
+    log(f"train: one more whole step {wall:.6f} s, then one under "
+        f"torch.profiler: "
+        f"{share(activity, wall, pwall)}; "
+        f"{kernel_time(activity, 'flash_fwd_bf16_kernel')}; "
+        f"{kernel_time(activity, 'flash_bwd_')} [{label}]")
+    busy, _, by_name = activity
+    if busy is not None:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log("train: device time of the profiled step by kernel (top 8): " +
+            "; ".join(f"{name[:70]} {sec:.6f} s ({sec / busy:.4f})"
+                      for name, sec in top))
+    log(f"train: PipelineStats {dataclasses.asdict(pipeline.stats)} "
+        f"(epoch {pipeline.epoch}, {pipeline.steps_per_epoch} steps an "
+        f"epoch)")
+    del params, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_replay(dev):
+    """``flash_attention_bwd`` at the training shape: kernel, plain and
+    SDPA-backward times and the bound."""
+    cfg = get_config(ARCH)
+    hd, h, hk = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    rng = np.random.default_rng(16)
+    err, (q, k, v, out, lse, dout) = bwd_case(
+        rng, dev, TRAIN_B, TRAIN_S, TRAIN_S, h, hk, hd, torch.bfloat16, True)
+
+    def kernel():
+        return flash.flash_attention_bwd(q, k, v, out, lse, dout)
+    ms = cuda_ms(kernel)
+    in_graph_ms = graph_ms(kernel, n=10)
+    plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout),
+                       reps=3)
+    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa, (qs, ks, vs), dout, retain_graph=True))
+    live = TRAIN_B * h * TRAIN_S * (TRAIN_S + 1) // 2
+    flops = 8 * hd * live
+    nbytes = sum(x.nbytes for x in (q, k, v, out, lse, dout)) + \
+        q.nbytes + k.nbytes + v.nbytes
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"replay[flash_attention_bwd]: q {tuple(q.shape)} k/v "
+        f"{tuple(k.shape)} bf16 causal: kernel {ms:.4f} ms back to back, "
+        f"{in_graph_ms:.4f} ms in a CUDA graph = "
+        f"{flops / in_graph_ms / 1e9:.1f} TFLOP/s, {in_graph_ms / lib_ms:.3f}"
+        f" x sdpa backward; plain {plain_ms:.4f} ms, sdpa backward "
+        f"{lib_ms:.4f} ms = {flops / lib_ms / 1e9:.1f} TFLOP/s, bound "
+        f"{max(ops_ms, bytes_ms):.6f} ms ({flops} flops, {nbytes} bytes) "
+        f"[{card_label()}]")
+    return dict(ms=ms, graph_ms=in_graph_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, max_abs_err=err,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def phase_resume(dev, root, seed):
+    """Bit-exact resume at reduced size (S = TRAIN_S, so the kernels run):
+    train TRAIN_STEPS steps with a checkpoint of the params, the moments
+    and the pipeline's state after step 2; restore it into fresh tensors
+    and a fresh pipeline and train steps 3 and on again: the losses and
+    the final parameters must be equal bit for bit."""
+    cfg = get_config(ARCH)
+    small = reduced(cfg, **RESUME)
+    opt_cfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
+                              total_steps=TRAIN_STEPS)
+    step = make_train_step(small, opt_cfg, remat=True)
+    pipeline = train_pipeline(root / "data", small.vocab_size, seed)
+    params = init_params(small, seed=seed, device=dev)
+    opt_state = adamw_init(params, opt_cfg)
+    ckpt = AsyncCheckpointer(str(root / "ckpt"), keep=2)
+    zero_launches()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        params, opt_state, m = step(params, opt_state,
+                                    on_card(pipeline.next_batch(), dev))
+        losses.append(float(m["loss"]))
+        if i + 1 == 2:
+            ckpt.save(2, {"params": params, "opt": opt_state},
+                      extra={"pipeline": pipeline.state()})
+    ckpt.wait()
+    fwd = flash.LAUNCHES["flash_attention_fwd"]
+    bwd = flash.LAUNCHES["flash_attention_bwd"]
+    like = {"params": init_params(small, seed=seed + 1, device=dev),
+            "opt": adamw_init(params, opt_cfg)}
+    tree, start, extra = restore_checkpoint(
+        latest_checkpoint(str(root / "ckpt")), like)
+    p2, o2 = tree["params"], tree["opt"]
+    again = RawArrayTokenPipeline(pipeline.cluster.catalog,
+                                  pipeline.reader, n_hosts=TRAIN_HOSTS,
+                                  host_budget_bytes=TRAIN_HOST_BUDGET,
+                                  batch=TRAIN_B, seq=TRAIN_S, policy="cost")
+    again.set_state(extra["pipeline"])
+    resumed = []
+    for _ in range(start, TRAIN_STEPS):
+        p2, o2, m = step(p2, o2, on_card(again.next_batch(), dev))
+        resumed.append(float(m["loss"]))
+    same = all(torch.equal(a, b) for a, b in zip(leaves(params),
+                                                  leaves(p2)))
+    if resumed != losses[start:] or not same or not bwd:
+        raise AssertionError(f"resume: losses {losses}, resumed from step "
+                             f"{start}: {resumed}; final params equal: "
+                             f"{same}; bwd launches {bwd}")
+    log(f"resume: {small.name} (d_model {small.d_model}, {small.n_layers} "
+        f"layers, {small.n_heads}/{small.n_kv_heads} heads of "
+        f"{small.resolved_head_dim}, vocab {small.vocab_size}), B={TRAIN_B} "
+        f"S={TRAIN_S}: {TRAIN_STEPS} steps, losses {losses} (flash launches "
+        f"fwd {fwd}, bwd {bwd}); restored step {start} (params, moments, "
+        f"pipeline state {extra['pipeline']}) and re-ran steps "
+        f"{start + 1}-{TRAIN_STEPS}: losses {resumed}, equal bit for bit, "
+        f"final parameters equal bit for bit")
 
 
 def main(argv=None) -> int:
@@ -1374,6 +1829,8 @@ def main(argv=None) -> int:
                          "(prune='block')")
     ap.add_argument("--plain-budget-s", type=float, default=240.0,
                     help="wall-clock budget of the plain-version replay")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the train phases' corpus and weights")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1386,7 +1843,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    libraries = (simjoin.LIBRARY, flash.LIBRARY, paged.LIBRARY)
+    libraries = (simjoin.LIBRARY, flash.LIBRARY, flash.LIBRARY_BWD,
+                 paged.LIBRARY)
     build_all(libraries)
     log(f"build: {time.perf_counter() - t0:.2f} s for {len(libraries)} "
         f"sources, one nvcc each, in parallel")
@@ -1401,6 +1859,14 @@ def main(argv=None) -> int:
         f"{name} D={d} {fl.flash_smem_bytes(code, d)} bytes"
         for code, name in ((1, "flash_fwd_bf16_kernel"),
                            (0, "flash_fwd_f32_kernel"))
+        for d in flash.HEAD_DIMS))
+    fb = flash.LIBRARY_BWD.load()
+    log("build: flash backward dynamic shared memory per CTA: " + ", ".join(
+        f"{name} D={d} {fb.flash_bwd_smem_bytes(code, which, d)} bytes"
+        for code, which, name in (
+            (1, 0, "flash_bwd_dkdv_mma_kernel"),
+            (1, 1, "flash_bwd_dq_mma_kernel"),
+            (0, 0, "flash_bwd_dkdv_kernel"), (0, 1, "flash_bwd_dq_kernel"))
         for d in flash.HEAD_DIMS))
 
     sweep_err = phase_kernels(dev)
@@ -1430,16 +1896,20 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     log(f"model: {ARCH} at full size, {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
-        f"{n_params} parameters ({sum(t.nbytes for t in _leaves(params))} "
+        f"{n_params} parameters ({sum(t.nbytes for t in leaves(params))} "
         f"bytes), random bf16 from seed 0 in "
         f"{time.perf_counter() - t0:.2f} s")
     attn_launches = {"flash_attention_fwd": phase_prefill(params, cfg, dev)}
     attn_launches["paged_attention"], paged_args = phase_serve(params, cfg,
                                                                dev)
+    # The serving phase's engines reach the parameters through reference
+    # cycles (their decode step is wrapped by the recorders): collect them
+    # so the parameters are freed before the train phase.
     del params
+    gc.collect()
     torch.cuda.empty_cache()
     attn_rows = phase_attention_replay(dev, paged_args)
     for name, row in attn_rows.items():
@@ -1453,6 +1923,22 @@ def main(argv=None) -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], **extra,
             "earlier": "PERF.md §6"})
+
+    bwd_err = phase_train_kernels(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = Path(tmp)
+        train_launches = phase_train(dev, root / "full", args.seed)
+        row = phase_train_replay(dev)
+        phase_resume(dev, root / "resume", args.seed)
+    name = "flash_attention_bwd"
+    record.append({
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name], "launches": train_launches[name],
+        "max_abs_err": max(row["max_abs_err"], bwd_err), "ms": row["ms"],
+        "graph_ms": row["graph_ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "train_fwd_launches": train_launches["flash_attention_fwd"]})
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": record}))
     print(card_label())

@@ -11,7 +11,11 @@
 // is a real score after that tile and masked entries weigh exp(-1e30 - m)
 // = 0. Only key tiles up to the last key a row of the CTA can see are
 // visited (the TPU kernel's nk_live skip). The result does not depend on
-// the TPU kernel's bq / bk: each kernel tiles by its own sizes.
+// the TPU kernel's bq / bk: each kernel tiles by its own sizes. Given a
+// non-null lse pointer, both kernels also store each row's natural-log
+// logsumexp of the scaled, masked scores, (B, H, Sq) fp32, as the
+// reference's _blockwise_impl returns it for its backward; the store
+// follows the KV loop and costs nothing when the pointer is null.
 //
 // What bounds it on this card: at the prefill shape (B 2, S 4096, H 24,
 // D 128, causal) the forward does about 2.1e11 flops on 134 MB of input
@@ -89,8 +93,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int H, int Hk, int Sq, int Sk, int causal, int q_offset,
-                     float sm_scale) {
+                     float* __restrict__ lse, int H, int Hk, int Sq, int Sk,
+                     int causal, int q_offset, float sm_scale) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int kCols = D / 16;   // accumulator columns per thread
   extern __shared__ float smem[];
@@ -224,12 +228,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
       ob[static_cast<int64_t>(gr) * D + tx + 16 * c] = acc[i][c] / denom;
+    // The scores were scaled as Q landed, so m is in natural-log units.
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + gr] = m[i] + logf(denom);
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hk, int Sq, int Sk, int causal, int q_offset,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Hk, int Sq, int Sk, int causal, int q_offset,
            float sm_scale, cudaStream_t stream) {
   static bool attr_set[kMaxDevices] = {};
   constexpr size_t smem = smem_bytes<D>();
@@ -238,8 +245,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Hk, Sq, Sk,
-      causal, q_offset, sm_scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Hk, Sq,
+      Sk, causal, q_offset, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -496,8 +503,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
-                      __nv_bfloat16* __restrict__ o, int H, int Hk, int Sq,
-                      int Sk, int causal, int q_offset, float scale_log2) {
+                      __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int H, int Hk, int Sq, int Sk,
+                      int causal, int q_offset, float scale_log2) {
   using T = Tile<D>;
   static_assert(D == 32 || D == 64 || D == 128, "head dim");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -662,6 +670,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     const float inv = 1.f / fmaxf(lr, 1e-30f);
     const int row = r0 + 8 * r;
     if (row >= Sq) continue;
+    // m is the running max of the base-2 scaled scores: the natural-log
+    // logsumexp is m ln 2 + ln(l).
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[static_cast<int64_t>(bh) * Sq + row] =
+          m[r] * 0.6931471805599453f + logf(fmaxf(lr, 1e-30f));
     __nv_bfloat16* orow = ob + static_cast<int64_t>(row) * D + c0;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -726,8 +739,8 @@ int encode(CUtensorMap* map, const void* ptr, int S, int heads, int rows) {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hk, int Sq, int Sk, int causal, int q_offset,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Hk, int Sq, int Sk, int causal, int q_offset,
            float sm_scale, cudaStream_t stream) {
   using T = Tile<D>;
   static bool attr_set[kMaxDevices] = {};
@@ -741,8 +754,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (bad) return bad;
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_fwd_bf16_kernel<D><<<grid, kThreads, T::kSmem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), H, Hk, Sq, Sk, causal,
-      q_offset, sm_scale * 1.4426950408889634f);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, H, Hk, Sq, Sk,
+      causal, q_offset, sm_scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -779,13 +792,17 @@ int64_t flash_smem_bytes(int dtype, int D) {
 }
 
 // Launch the forward on `stream`; dtype 0 = float32 (flash_fwd_f32_kernel),
-// 1 = bfloat16 (flash_fwd_bf16_kernel). Returns 0, a cudaError_t, or one
-// of the tensor-map codes of flash_error_string.
+// 1 = bfloat16 (flash_fwd_bf16_kernel). `lse` is null, or (B, H, Sq) fp32
+// that receives each row's natural-log logsumexp of the scaled, masked
+// scores (the backward reads it; serving passes null). Returns 0, a
+// cudaError_t, or one of the tensor-map codes of flash_error_string.
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                     int dtype, int B, int H, int Hk, int Sq, int Sk, int D,
-                     int causal, int q_offset, float sm_scale, void* stream) {
+                     void* lse, int dtype, int B, int H, int Hk, int Sq,
+                     int Sk, int D, int causal, int q_offset, float sm_scale,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_ARGS q, k, v, o, B, H, Hk, Sq, Sk, causal, q_offset, sm_scale, s
+  float* l = static_cast<float*>(lse);
+#define REPRO_FLASH_ARGS q, k, v, o, l, B, H, Hk, Sq, Sk, causal, q_offset, sm_scale, s
   if (dtype == 0) {
     switch (D) {
       case 32: return f32::launch<32>(REPRO_FLASH_ARGS);

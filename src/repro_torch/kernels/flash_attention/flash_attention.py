@@ -1,5 +1,5 @@
-"""Flash-attention forward: hand-written CUDA for Hopper plus its plain
-PyTorch version.
+"""Flash attention, forward and backward: hand-written CUDA for Hopper
+plus the plain PyTorch versions.
 
 The port of ``repro/kernels/flash_attention/flash_attention.py``. The
 CUDA kernels in ``flash_attention.cu`` replace the Pallas TPU kernel
@@ -14,10 +14,20 @@ keep the reference's fp32 tolerance that TF32 would not).
 :func:`flash_attention_fwd` launches a kernel for CUDA tensors and
 counts the launch in :data:`LAUNCHES` (both kernels under one name); for
 CPU tensors, or under ``impl="plain"``, it runs the plain version
-:func:`ref.attention_ref`. There is no fallback between the two: a
-kernel that fails to build or launch raises. The kernels take float32
-and bfloat16 and head dims in :data:`HEAD_DIMS`; anything else raises on
-a CUDA tensor.
+:func:`ref.attention_ref`. With ``return_lse`` it also returns each
+row's logsumexp, which the backward reads.
+
+:func:`flash_attention_bwd` is the backward: the kernels of
+``flash_attention_bwd.cu`` (no Pallas counterpart: they replace the
+reference's plain-JAX custom VJP ``_blockwise_bwd``,
+``repro/models/attention.py:150``) give dq, dk and dv from ``(q, k, v,
+out, lse, dout)``; its plain version is :func:`ref.attention_bwd_ref`.
+One call counts one launch under ``"flash_attention_bwd"``.
+
+There is no fallback between a kernel and its plain version: a kernel
+that fails to build or launch raises. The kernels take float32 and
+bfloat16 and head dims in :data:`HEAD_DIMS`; anything else raises on a
+CUDA tensor.
 
 ``bq`` and ``bk`` keep the reference's contract (``Sq % bq == 0`` and
 ``Sk % bk == 0``, which ``ops`` meets by padding) but do not reach the
@@ -34,7 +44,8 @@ import torch
 
 from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels._tensors import aligned16
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 
 #: ``impl`` values: ``"kernel"`` launches the CUDA kernel for CUDA
 #: tensors (the plain version serves CPU tensors); ``"plain"`` always runs
@@ -45,18 +56,29 @@ IMPLS = ("kernel", "plain")
 HEAD_DIMS = (32, 64, 128)
 
 #: Kernel name -> launches so far (bumped only where the kernel launches).
-LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
+                            "flash_attention_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: The compiled ``flash_attention.cu``: its launcher and the dynamic
 #: shared memory a CTA of each kernel takes (by dtype code and head dim).
 LIBRARY = CudaLibrary("flash", Path(__file__).with_name("flash_attention.cu"), {
-    "flash_fwd_launch": (("ptr", "ptr", "ptr", "ptr", "i32", "i32", "i32",
-                          "i32", "i32", "i32", "i32", "i32", "i32", "f32",
-                          "ptr"), "i32"),
+    "flash_fwd_launch": (("ptr", "ptr", "ptr", "ptr", "ptr", "i32", "i32",
+                          "i32", "i32", "i32", "i32", "i32", "i32", "i32",
+                          "f32", "ptr"), "i32"),
     "flash_smem_bytes": (("i32", "i32"), "i64"),
 })
+
+#: The compiled ``flash_attention_bwd.cu``: its launcher and the dynamic
+#: shared memory of its dK/dV (0) and dQ (1) kernels by dtype code and
+#: head dim.
+LIBRARY_BWD = CudaLibrary(
+    "flash_bwd", Path(__file__).with_name("flash_attention_bwd.cu"), {
+        "flash_bwd_launch": (("ptr",) * 10 + ("i32",) * 9 + ("f32", "ptr"),
+                             "i32"),
+        "flash_bwd_smem_bytes": (("i32", "i32", "i32"), "i64"),
+    })
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -99,18 +121,12 @@ def _use_kernel(t: torch.Tensor, impl: str) -> bool:
                      f"{t.device}")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, bq: int = 128, bk: int = 128,
-                        q_offset: int = 0,
-                        impl: str = "kernel") -> torch.Tensor:
-    """q: (B, H, Sq, D); k, v: (B, Hk, Sk, D) with H % Hk == 0, Sq % bq
-    == 0 and Sk % bk == 0 (``ops`` pads). Returns (B, H, Sq, D) in q's
-    dtype. With ``causal``, query i sees keys j <= i + q_offset."""
-    _check_shapes(q, k, v, bq, bk, q_offset)
-    if not _use_kernel(q, impl):
-        return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
-    b, h, sq, d = q.shape
-    _, hk, sk, _ = k.shape
+def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> None:
+    """What the CUDA kernels take beyond the reference's contract: one
+    dtype of float32 or bfloat16, a head dim of :data:`HEAD_DIMS`, a grid
+    and element counts that fit their index types."""
+    b, h, _, d = q.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the CUDA flash kernels take float32 or bfloat16 "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
@@ -122,17 +138,94 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"grid too large: B={b}, H={h}")
     if max(q.numel(), k.numel()) >= 2 ** 31:
         raise ValueError("q or k has 2^31 or more elements")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, bq: int = 128, bk: int = 128,
+                        q_offset: int = 0, impl: str = "kernel",
+                        return_lse: bool = False):
+    """q: (B, H, Sq, D); k, v: (B, Hk, Sk, D) with H % Hk == 0, Sq % bq
+    == 0 and Sk % bk == 0 (``ops`` pads). Returns (B, H, Sq, D) in q's
+    dtype. With ``causal``, query i sees keys j <= i + q_offset. With
+    ``return_lse``, returns ``(out, lse)``: lse (B, H, Sq) fp32 is each
+    row's natural-log logsumexp of the scaled, masked scores."""
+    _check_shapes(q, k, v, bq, bk, q_offset)
+    if not _use_kernel(q, impl):
+        return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                             return_lse=return_lse)
+    _check_kernel_inputs(q, k, v)
+    b, h, sq, d = q.shape
+    _, hk, sk, _ = k.shape
     q, k, v = (aligned16(x.contiguous()) for x in (q, k, v))
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = LIBRARY.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   out.data_ptr(), _DTYPES[q.dtype], b, h,
-                                   hk, sq, sk, d, int(bool(causal)),
-                                   int(q_offset), 1.0 / math.sqrt(d), stream)
+                                   out.data_ptr(),
+                                   None if lse is None else lse.data_ptr(),
+                                   _DTYPES[q.dtype], b, h, hk, sq, sk, d,
+                                   int(bool(causal)), int(q_offset),
+                                   1.0 / math.sqrt(d), stream)
     LIBRARY.check(err, "flash_attention_fwd")
     LAUNCHES["flash_attention_fwd"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        q_offset: int = 0, impl: str = "kernel"):
+    """Gradients (dq, dk, dv) of :func:`flash_attention_fwd` from its
+    ``out`` and ``lse``: q, out, dout (B, H, Sq, D); k, v (B, Hk, Sk, D);
+    lse (B, H, Sq) fp32. dq has q's shape and dtype, dk and dv k's (summed
+    over each kv head's group of query heads). The CUDA kernels for CUDA
+    tensors under ``impl="kernel"``, else :func:`ref.attention_bwd_ref`;
+    both compute in fp32, and the kernels give the same bits from run to
+    run (no atomics)."""
+    _check_shapes(q, k, v, 1, 1, q_offset)
+    b, h, sq, d = q.shape
+    _, hk, sk, _ = k.shape
+    if out.shape != q.shape or dout.shape != q.shape or \
+            tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be q's shape "
+                         f"{tuple(q.shape)}, lse {tuple(lse.shape)} must be "
+                         f"{(b, h, sq)}")
+    if not _use_kernel(q, impl):
+        return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                 q_offset=q_offset)
+    _check_kernel_inputs(q, k, v)
+    if out.dtype != q.dtype or dout.dtype != q.dtype or \
+            lse.dtype != torch.float32:
+        raise TypeError(f"out and dout must be q's dtype {q.dtype} and lse "
+                        f"float32, got {out.dtype}, {dout.dtype}, "
+                        f"{lse.dtype}")
+    if not all(t.device == q.device for t in (out, lse, dout)):
+        raise ValueError("q, out, lse and dout on different devices")
+    q, k, v, out, dout = (aligned16(x.contiguous())
+                          for x in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = LIBRARY_BWD.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_bwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   out.data_ptr(), dout.data_ptr(),
+                                   lse.data_ptr(), delta.data_ptr(),
+                                   dq.data_ptr(), dk.data_ptr(),
+                                   dv.data_ptr(), _DTYPES[q.dtype], b, h, hk,
+                                   sq, sk, d, int(bool(causal)),
+                                   int(q_offset), 1.0 / math.sqrt(d), stream)
+    LIBRARY_BWD.check(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -1,1 +1,1 @@
-"""Launchers: the serving command line."""
+"""Launchers: the serving and training command lines."""

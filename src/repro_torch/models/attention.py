@@ -6,7 +6,8 @@ the implementation as the reference does: ``"auto"`` is naive for
 S <= 2048 and blockwise beyond. The blockwise path of the reference is
 the online-softmax formulation that its Pallas kernel implements; here
 it IS the flash kernel (``kernels.flash_attention``), fed the
-unexpanded KV heads. ``decode_attention``'s attention core is the paged
+unexpanded KV heads, and its gradient (the reference's custom VJP) is
+the flash backward kernel. ``decode_attention``'s attention core is the paged
 kernel (``kernels.paged_attention``) run on a page view of the dense
 per-slot cache. ``kernel_impl`` / ``impl`` = ``"plain"`` runs the two
 kernels' plain versions instead (on the card, for checking).
@@ -113,19 +114,12 @@ def _naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool, impl: str) -> torch.Tensor:
-    """The reference's blockwise (online-softmax) attention, forward
-    only: the flash kernel on (B, S, H, D) q and unexpanded (B, S, Hk, D)
-    k, v. Non-causal keys are not padded (the kernel's contract), so bk
-    is then the largest divisor of Sk up to ``BLOCK_K``. The custom
-    backward of the reference (``attention.py:128-186``) belongs to the
-    training slice: a gradient through the kernel raises."""
-    if q.device.type == "cuda" and impl == "kernel" and \
-            torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "blockwise attention has no backward on the card yet: the "
-            "flash kernel's backward is the training slice's work "
-            "(ROADMAP.md queue 1 item 6, Training)")
+    """The reference's blockwise (online-softmax) attention with its
+    custom backward (``attention.py:127-186``): the flash kernels on
+    (B, S, H, D) q and unexpanded (B, S, Hk, D) k, v, forward and, when a
+    gradient is asked for, backward (``ops.FlashAttention``). Non-causal
+    keys are not padded (the kernel's contract), so bk is then the
+    largest divisor of Sk up to ``BLOCK_K``."""
     bk = BLOCK_K if causal else math.gcd(k.shape[1], BLOCK_K)
     return flash_attention(q, k, v, causal=causal, bq=BLOCK_Q, bk=bk,
                            impl=impl)

@@ -158,16 +158,49 @@ def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return table[ids]
 
 
+class _Unembed(torch.autograd.Function):
+    """fp32 logits ``x @ table.T`` from a table and activations of one
+    dtype on the card, with a gradient: PyTorch has none for the
+    ``mm(..., out_dtype=float32)`` product. The backward is two cuBLAS
+    products that read the table in its own dtype, as the reference's are
+    XLA dots: ``dx = dlogits @ table`` in x's dtype (JAX's transpose of a
+    dot with ``preferred_element_type=float32``), and ``dtable =
+    dlogits.T @ x`` summed in fp32, then cast to the table's dtype. The
+    fp32 ``dlogits`` is rounded to the table's dtype for both products,
+    the operand rounding of the bf16 tensor cores (and of the reference's
+    default-precision dots on its TPU)."""
+
+    @staticmethod
+    def forward(ctx, x2, table):
+        """(N, d) x2, (V, d) table -> (N, V) fp32."""
+        ctx.save_for_backward(x2, table)
+        return torch.mm(x2, table.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dlogits):
+        """(dx2, dtable)."""
+        x2, table = ctx.saved_tensors
+        g = dlogits.to(table.dtype)
+        dx = dtable = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, table, out_dtype=torch.float32).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dtable = torch.mm(g.t(), x2, out_dtype=torch.float32).to(
+                table.dtype)
+        return dx, dtable
+
+
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """fp32 logits ``x @ table.T`` with fp32 accumulation, never making an
     fp32 copy of the (vocab, d) table on the card: there one
     ``torch.mm(..., out_dtype=float32)`` reads the table in its own
-    dtype. The CPU has no such product, so there the activations and the
-    table are cast to fp32 for the call (the plain path)."""
+    dtype, differentiable through :class:`_Unembed`. The CPU has no such
+    product, so there the activations and the table are cast to fp32 for
+    the call (the plain path, differentiated by autograd)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda" and x2.dtype == table.dtype:
-        out = torch.mm(x2, table.t(), out_dtype=torch.float32)
+        out = _Unembed.apply(x2, table)
     else:
         out = torch.mm(x2.float(), table.float().t())
     return out.reshape(*lead, table.shape[0])

@@ -10,7 +10,7 @@ holds one dict of tensors per layer (layer ``p * period + i`` is block
 Ported mixers and MLPs: ``attn`` with ``dense`` (or ``none``). The
 Mamba, mLSTM and sLSTM mixers, the MoE MLP and sequence parallelism
 raise ``NotImplementedError``: their modules are later slices of the
-port (``ROADMAP.md`` queue 1 item 6).
+port (``ROADMAP.md`` queue 1 item 7).
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; ``impl="plain"`` runs the attention kernels' plain
@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -28,7 +29,7 @@ from repro_torch.models.layers import (Params, apply_mlp, apply_norm, embed,
                                        init_embedding, init_mlp, init_norm,
                                        rope_tables, unembed)
 
-_ROADMAP = "ROADMAP.md queue 1 item 6"
+_ROADMAP = "ROADMAP.md queue 1 item 7"
 _NOT_PORTED = {"mamba": "models/ssm.py", "mlstm": "models/ssm.py",
                "slstm": "models/ssm.py", "moe": "models/moe.py"}
 
@@ -137,11 +138,12 @@ def forward(params: Params, cfg: ModelConfig, *,
     ``tokens``: (B, S) integers (LM / VLM text); ``embeds``: (B, S_e, d)
     precomputed frontend embeddings (audio frames / vision patches), cast
     to bf16 as the reference does; for the VLM both are given and the
-    patch embeddings come first. ``remat`` is accepted for the
-    reference's signature and changes nothing: no activations are kept
-    for a backward here."""
+    patch embeddings come first. ``remat`` (when a gradient is being
+    recorded) checkpoints every layer, as the reference checkpoints every
+    period: a layer keeps only its input, and its forward runs again in
+    the backward pass (the whole layer is recomputed; the reference's
+    policy keeps its non-batched dot outputs)."""
     check_supported(cfg)
-    del remat
     parts = []
     if embeds is not None:
         parts.append(embeds.to(torch.bfloat16))
@@ -152,10 +154,13 @@ def forward(params: Params, cfg: ModelConfig, *,
     positions = torch.arange(S, device=h.device)[None, :]
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     causal = not cfg.encoder_only
+    remat = remat and torch.is_grad_enabled()
     for layer, (_, mlp) in zip(params["layers"],
                                cfg.layer_pattern * cfg.n_periods):
-        h = _apply_block_seq(layer, h, cfg, mlp, positions, causal,
-                             attention_impl, impl, rope)
+        args = (layer, h, cfg, mlp, positions, causal, attention_impl, impl,
+                rope)
+        h = checkpoint(_apply_block_seq, *args, use_reentrant=False) \
+            if remat else _apply_block_seq(*args)
     return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32,
                                                 device=h.device)
 

@@ -3,8 +3,8 @@ against the reference's Pallas kernels in interpret mode and its jnp
 oracles, on the sweeps of tests/test_kernels_{flash,paged}.py, from the
 same numpy-seeded inputs. Tolerances are the reference tests' own: fp32
 2e-5; bf16 2e-2 (flash) and 3e-2 (paged). The CUDA kernels themselves
-are checked on the card by the ``cuda``-marked tests (and chip_smoke.py),
-which import nothing of JAX: ``python -m pytest -m cuda
+(forward and backward) are checked on the card by the ``cuda``-marked
+tests (and chip_smoke.py), which import nothing of JAX: ``python -m pytest -m cuda
 tests/test_torch_attention_kernels.py`` runs them where only the port is
 installed.
 """
@@ -24,6 +24,7 @@ from repro_torch.kernels.paged_attention.ops import \
     paged_decode_attention as tpaged_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import \
     paged_attention_ref as tpaged_ref  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models.attention import (_blockwise_attention,  # noqa: E402
                                           _naive_attention)
 
@@ -158,6 +159,119 @@ def test_flash_contract():
         tflash.flash_attention_fwd(q4, k4, v4, bq=32, bk=32, q_offset=-1)
     with pytest.raises(ValueError, match="unknown impl"):
         tflash.flash_attention_fwd(q4, k4, v4, bq=32, bk=32, impl="pallas")
+
+
+# --------------------------------------------------------- flash backward
+#
+# Tolerances of the gradients, relative to each gradient's largest
+# magnitude: fp32 1e-4 (sums in other orders), bf16 5e-2, the bf16 slack
+# of tests/test_torch_models.py (the reference's bf16 logits product
+# rounds its scores to bf16 before the fp32 softmax; the port's plain
+# versions and kernels keep them fp32).
+GRAD_TOLS = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def assert_grads_close(got, want, tol, what=""):
+    """Each pair within ``tol`` x the reference gradient's max |g|."""
+    for name, g, w in zip("qkv", got, want):
+        g, w = f32(g), f32(w)
+        scale = max(float(np.abs(w).max()), 1e-6)
+        err = float(np.abs(g - w).max())
+        assert err <= tol * scale, (f"{what} d{name}: max err {err} > "
+                                    f"{tol} x {scale}")
+
+
+def jax_blockwise_vjp(qkv, dout, causal, dtype):
+    """(dq, dk, dv) of the reference's ``_blockwise_attention`` (its
+    custom VJP ``_blockwise_bwd``) over expanded KV heads, by
+    ``jax.vjp``, in the model's (B, S, H, D) layout."""
+    jax = pytest.importorskip("jax")
+    import repro.core  # noqa: F401  (the reference's import order)
+    from repro.models import attention as jattn
+    h = qkv[0].shape[2]
+    jd = getattr(jax.numpy, dtype)
+    q, k, v = (jax.numpy.asarray(x).astype(jd) for x in qkv)
+
+    def fn(q, k, v):
+        return jattn._blockwise_attention(
+            q, jattn._expand_kv(k, h), jattn._expand_kv(v, h), causal)
+
+    _, vjp = jax.vjp(fn, q, k, v)
+    return vjp(jax.numpy.asarray(dout).astype(jd))
+
+
+BWD_CASES = [  # (b, s, h, hk, d, causal): GQA rep 1 and 3, padded S
+    (2, 128, 4, 4, 32, True), (1, 130, 6, 2, 32, True),
+    (2, 256, 3, 1, 64, False), (1, 200, 4, 4, 16, False),
+    (1, 300, 6, 2, 32, True)]
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,causal", BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_matches_reference(b, s, h, hk, d, causal, dtype):
+    """Autograd through the port's blockwise attention (the flash entry
+    point's gradient, plain versions on the CPU) against ``jax.vjp`` of
+    the reference's custom-VJP blockwise attention."""
+    qkv = make_qkv(20 + s, b, s, s, h, hk, d)
+    dout = np.random.default_rng(s).standard_normal((b, s, h, d),
+                                                    np.float32)
+    want = jax_blockwise_vjp(qkv, dout, causal, dtype)
+    t = [tt(x, dtype).requires_grad_(True) for x in qkv]
+    out = _blockwise_attention(*t, causal, "kernel")
+    got = torch.autograd.grad(out, t, tt(dout, dtype))
+    for g, x in zip(got, t):
+        assert g.dtype == x.dtype and g.shape == x.shape
+    assert_grads_close(got, want, GRAD_TOLS[dtype], f"{dtype} {s}")
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (False, 0),
+                                             (True, 64)])
+@pytest.mark.parametrize("rep", [1, 3])
+def test_attention_bwd_ref_matches_autograd(causal, q_offset, rep):
+    """``attention_bwd_ref`` from the forward's ``(out, lse)`` equals
+    autograd through ``attention_ref`` (heads-first, fp32), and the
+    forward's lse is the logsumexp of the masked scores."""
+    b, sq, sk, hk, d = 1, 96, 160, 2, 32
+    rng = np.random.default_rng(rep)
+    q, k, v = (tt(heads_first(x)).requires_grad_(True)
+               for x in make_qkv(30 + rep, b, sq, sk, hk * rep, hk, d))
+    dout = tt(rng.standard_normal((b, hk * rep, sq, d), np.float32))
+    out, lse = tflash.flash_attention_fwd(q, k, v, causal=causal, bq=32,
+                                          bk=32, q_offset=q_offset,
+                                          return_lse=True)
+    assert lse.shape == (b, hk * rep, sq) and lse.dtype == torch.float32
+    want = torch.autograd.grad(
+        tattention_ref(q, k, v, causal=causal, q_offset=q_offset),
+        (q, k, v), dout)
+    got = tflash.flash_attention_bwd(q, k, v, out, lse, dout,
+                                     causal=causal, q_offset=q_offset)
+    assert_grads_close(got, want, 1e-4, f"causal={causal}")
+    s = torch.einsum("bhqd,bhkd->bhqk", q.detach(),
+                     torch.repeat_interleave(k.detach(), rep, 1)) \
+        / np.sqrt(d)
+    if causal:
+        keep = torch.arange(sk)[None, :] <= torch.arange(sq)[:, None] + \
+            q_offset
+        s = s.masked_fill(~keep, -1e30)
+    np.testing.assert_allclose(f32(lse), f32(torch.logsumexp(s, -1)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_flash_backward_contract():
+    """The backward's shape checks, and the forward skips the lse (and
+    the autograd Function) when no gradient is asked for."""
+    q, k, v = (tt(heads_first(x)) for x in make_qkv(40, 1, 64, 64, 2, 1,
+                                                      32))
+    out, lse = tflash.flash_attention_fwd(q, k, v, bq=32, bk=32,
+                                          return_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        tflash.flash_attention_bwd(q, k, v, out, lse[:, :1], out)
+    with pytest.raises(ValueError, match="dout"):
+        tflash.flash_attention_bwd(q, k, v, out, lse, out[:, :, :32])
+    qm, km, vm = (x.transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+    with torch.no_grad():
+        assert tflash_ops.flash_attention(qm, km, vm).grad_fn is None
+    assert tflash_ops.flash_attention(qm, km, vm).grad_fn is not None
 
 
 # ------------------------------------------------------------------ paged
@@ -299,8 +413,9 @@ def _need_card():
 
 @pytest.mark.cuda
 def test_flash_kernel_on_card():
-    """The CUDA flash kernel equals its plain version on the card; a
-    gradient through it raises (the backward is the training slice's)."""
+    """The CUDA flash kernel equals its plain version on the card, and a
+    gradient through the blockwise path runs the backward kernel and
+    equals the plain version's."""
     _need_card()
     before = tflash.LAUNCHES["flash_attention_fwd"]
     for dtype, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
@@ -314,10 +429,17 @@ def test_flash_kernel_on_card():
             np.testing.assert_allclose(f32(got), f32(want), rtol=tol,
                                        atol=tol)
     assert tflash.LAUNCHES["flash_attention_fwd"] == before + 4
-    # No backward through the kernel yet: asking for one raises.
-    q = t[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _blockwise_attention(q, t[1], t[2], True, "kernel")
+    # The gradient through the kernel: one forward and one backward launch.
+    t = [x.clone().requires_grad_(True) for x in t]
+    dout = torch.randn_like(t[0])
+    before_bwd = tflash.LAUNCHES["flash_attention_bwd"]
+    got = torch.autograd.grad(_blockwise_attention(*t, True, "kernel"), t,
+                              dout)
+    want = torch.autograd.grad(_blockwise_attention(*t, True, "plain"), t,
+                               dout)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES["flash_attention_bwd"] == before_bwd + 1
+    assert_grads_close(got, want, GRAD_TOLS["bfloat16"])
 
 
 @pytest.mark.cuda
@@ -364,6 +486,42 @@ def test_flash_bf16_kernel_on_card(d):
     a = tflash_ops.flash_attention(*t, causal=True, bq=128, bk=128)
     b = tflash_ops.flash_attention(*t, causal=True, bq=64, bk=32)
     np.testing.assert_allclose(f32(a), f32(b), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", tflash.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_on_card(d, dtype):
+    """The backward kernels against ``attention_bwd_ref`` on the same
+    (out, lse), the forward kernels' lse against the plain one, and the
+    backward's bits equal from run to run: causal GQA, rep 1 and 3,
+    Sq and Sk off the tile size, non-causal, q_offset."""
+    _need_card()
+    tol = GRAD_TOLS[dtype]
+    for b, sq, sk, h, hk, causal, off in (
+            (2, 256, 256, 6, 2, True, 0), (1, 130, 130, 4, 4, True, 0),
+            (1, 200, 136, 3, 1, False, 0), (1, 64, 256, 2, 2, True, 192)):
+        rng = np.random.default_rng(sq + d)
+        t = [tt(heads_first(x), dtype).cuda()
+             for x in make_qkv(sq + d, b, sq, sk, h, hk, d)]
+        dout = tt(rng.standard_normal((b, h, sq, d), np.float32),
+                  dtype).cuda()
+        out, lse = tflash.flash_attention_fwd(*t, causal=causal, bq=1,
+                                              bk=1, q_offset=off,
+                                              return_lse=True)
+        _, lse_plain = tattention_ref(*t, causal=causal, q_offset=off,
+                                      return_lse=True)
+        np.testing.assert_allclose(f32(lse), f32(lse_plain), rtol=1e-4,
+                                   atol=1e-4)
+        got = tflash.flash_attention_bwd(*t, out, lse, dout, causal=causal,
+                                         q_offset=off)
+        again = tflash.flash_attention_bwd(*t, out, lse, dout,
+                                           causal=causal, q_offset=off)
+        want = tflash.flash_attention_bwd(*t, out, lse, dout, causal=causal,
+                                          q_offset=off, impl="plain")
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert_grads_close(got, want, tol, f"D{d} Sq{sq} Sk{sk}")
 
 
 def _serving_paged(seed, b, lens, dtype="bfloat16"):
@@ -429,3 +587,30 @@ def test_paged_kernel_shared_prefix_on_card():
     again = tpaged.paged_attention(q, kp, vp, table, lens)
     torch.cuda.synchronize()
     assert torch.equal(out[0], out[1]) and torch.equal(out, again)
+
+
+
+@pytest.mark.cuda
+def test_unembed_gradient_on_card():
+    """The card's fp32-logit unembedding (``mm`` with an fp32 output,
+    differentiated by ``_Unembed``) against the CPU path's autograd, bf16
+    table and activations: logits, dx and dtable within the bf16 slack
+    (5e-2 of each one's largest magnitude)."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    table = torch.from_numpy(rng.standard_normal((300, 64), np.float32) /
+                             8).to(torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 64), np.float32)).to(
+        torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((2, 5, 300), np.float32))
+    res = []
+    for dev in ("cpu", "cuda"):
+        t = table.to(dev).requires_grad_(True)
+        xx = x.to(dev).requires_grad_(True)
+        out = tlayers.unembed(t, xx)
+        assert out.dtype == torch.float32
+        dx, dt = torch.autograd.grad(out, (xx, t), g.to(dev))
+        assert dx.dtype == torch.bfloat16 and dt.dtype == torch.bfloat16
+        res.append([f32(out), f32(dx), f32(dt)])
+    for a, b in zip(*res):
+        assert np.abs(a - b).max() <= 5e-2 * np.abs(a).max()

@@ -205,9 +205,9 @@ def test_same_seed_same_bytes(fmt, tmp_path):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """A small port workload and a reduced-size serving run in a fresh
-    interpreter leave ``jax`` and every ``repro`` module out of
-    ``sys.modules``. It imports
+    """A small port workload, a reduced-size serving run and a few steps
+    of the training entry point in a fresh interpreter leave ``jax`` and
+    every ``repro`` module out of ``sys.modules``. It imports
     ``repro_torch.faults`` first: unlike the reference's, the port's
     packages import in any order."""
     code = (
@@ -237,6 +237,12 @@ def test_port_imports_neither_jax_nor_repro():
         "done = eng.run([Request(i, [1, 2, 3, 4 + i], max_new_tokens=2) "
         "for i in range(3)])\n"
         "assert len(done) == 3 and eng.stats.decode_steps > 0\n"
+        "from repro_torch.launch import train\n"
+        "out = train.main(['--device', 'cpu', '--steps', '3', '--batch', "
+        "'2', '--seq', '8', '--d-model', '32', '--periods', '1', "
+        "'--vocab', '64', '--data-dir', tempfile.mkdtemp(), "
+        "'--ckpt-dir', tempfile.mkdtemp(), '--ckpt-every', '2'])\n"
+        "assert len(out['losses']) == 3\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'repro' or k.startswith('repro.')]\n"
         "print('BAD', bad)\n"
