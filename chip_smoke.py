@@ -79,7 +79,8 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                the training shape (B 2, S 4096, 24/8 heads of 128,
                causal, bf16) and on an edge sweep (fp32 and bf16, every
                head dim, GQA rep 1 and 3, ragged non-causal Sk,
-               q_offset, padded S through autograd of the model's
+               q_offset, causal S 200 and 384 across the bf16 kernels'
+               tiles, padded S through autograd of the model's
                blockwise path); the forward kernels' lse against the
                plain one; two launches equal bit for bit;
  12. train   — llama3.2-3b trained at full width and depth (bf16
@@ -96,8 +97,9 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                memory, one more step under torch.profiler (busy and idle
                share, the flash kernels' device time), PipelineStats;
  13. replay[flash_attention_bwd] — the backward at the training shape:
-               kernel (back to back and in a CUDA graph), plain,
-               SDPA's backward alone, bound;
+               kernel (back to back and in a CUDA graph; the delta,
+               dK/dV and dQ kernels each from a profiled graph replay),
+               plain, SDPA's backward alone, bound;
  14. resume  — the same model reduced (d_model 512, 2 layers, vocab
                512) at S 4096: 4 steps with a checkpoint after step 2;
                params, moments and the pipeline's state restored into
@@ -114,6 +116,7 @@ import dataclasses
 import functools
 import gc
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -180,7 +183,7 @@ REPLACES = {
     "paged_attention":
         "src/repro/kernels/paged_attention/paged_attention.py:71",
     # No Pallas backward: the reference's custom VJP in plain JAX.
-    "flash_attention_bwd": "src/repro/models/attention.py:150",
+    "flash_attention_bwd": "src/repro/models/attention.py:142",
 }
 # Attention bounds, H100 SXM data sheet (NVIDIA, dense, 700 W): 989 TFLOP/s
 # bf16 on the tensor cores, 3.35 TB/s HBM3.
@@ -198,7 +201,9 @@ EARLIER = {"flash_attention_fwd": "8.4915 ms before the redesign (fp32 on "
            "simjoin_pruned_block_counts": "0.3185 ms before the redesign "
                                           "(one CTA per row, int32, a "
                                           "device sync per launch, back to "
-                                          "back)"}
+                                          "back)",
+           "flash_attention_bwd": "4.1810 ms in a CUDA graph before the "
+                                  "redesign (mma.sync, four warps a CTA)"}
 # The serving slice (the repo's llama3.2-3b config at full size).
 ARCH = "llama3.2-3b"
 PREFILL_B, PREFILL_S = 2, 4096
@@ -1293,10 +1298,8 @@ def phase_serve(params, cfg, dev):
     del recorder.calls, replay.calls, probes
     return launches, kept
 
-def graph_ms(fn, n: int = 100) -> float:
-    """Milliseconds per call of ``fn()`` replayed from a CUDA graph of
-    ``n`` calls (CUDA events around one replay, warmed): the card's time
-    per launch without the host's launch cost between launches."""
+def capture(fn, n: int):
+    """A warmed CUDA graph of ``n`` calls of ``fn()``."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -1309,6 +1312,14 @@ def graph_ms(fn, n: int = 100) -> float:
                 fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def graph_ms(fn, n: int = 100) -> float:
+    """Milliseconds per call of ``fn()`` replayed from a CUDA graph of
+    ``n`` calls (CUDA events around one replay, warmed): the card's time
+    per launch without the host's launch cost between launches."""
+    graph = capture(fn, n)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1316,6 +1327,29 @@ def graph_ms(fn, n: int = 100) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_kernel_ms(fn, n: int = 10):
+    """Device milliseconds per launch by kernel name, and the number of
+    launches the profiler recorded, from one replay of a CUDA graph of
+    ``n`` calls of ``fn()`` under ``torch.profiler``: the mean over the
+    recorded launches (the profiler can drop some launches of a graph
+    replay). None when it recorded no device time."""
+    graph = capture(fn, n)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total[e.name] = total.get(e.name, 0.0) + \
+                (e.time_range.end - e.time_range.start) / 1e3
+            count[e.name] = count.get(e.name, 0) + 1
+    if not total:
+        return None
+    return {name: (total[name] / count[name], count[name]) for name in total}
 
 
 def replay_paged(args, kind, label):
@@ -1497,7 +1531,13 @@ def phase_train_kernels(dev):
                     (2, 256, 256, 4, 4, True, 0),      # rep 1
                     (1, 320, 320, 6, 2, True, 0),      # rep 3
                     (1, 200, 136, 3, 1, False, 0),     # ragged, non-causal
-                    (1, 64, 256, 2, 2, True, 192)):    # q_offset
+                    (1, 64, 256, 2, 2, True, 192),     # q_offset
+                    # Partial key and query tiles on the diagonal.
+                    (1, 200, 200, 2, 2, True, 0),
+                    # Several query stages and head switches in one ring.
+                    (1, 384, 384, 6, 2, True, 0),
+                    # A key tile that straddles the offset.
+                    (1, 64, 320, 2, 1, True, 192)):
                 e, _ = bwd_case(rng, dev, b, sq, sk, h, hk, d, dtype, causal,
                                 off)
                 err = max(err, e)
@@ -1518,8 +1558,9 @@ def phase_train_kernels(dev):
                                       f"causal={causal}"))
             cases += 1
     log(f"train-kernels: {cases} edge cases (fp32 and bf16, D {flash.HEAD_DIMS}"
-        f", GQA rep 1 and 3, ragged non-causal Sk, q_offset 192, padded S "
-        f"through autograd of the blockwise path): kernel == plain within "
+        f", GQA rep 1 and 3, ragged non-causal Sk, q_offset 192, causal "
+        f"S 200 and 384, padded S through autograd of the blockwise path): "
+        f"kernel == plain within "
         f"{BWD_TOL[torch.float32]} (fp32) / {BWD_TOL[torch.bfloat16]} (bf16) "
         f"x max |g| ({AUTOGRAD_TOL[torch.bfloat16]} through autograd, where "
         f"the forwards differ too), forward lse == plain, bits equal run to "
@@ -1733,7 +1774,18 @@ def phase_train_replay(dev):
     def kernel():
         return flash.flash_attention_bwd(q, k, v, out, lse, dout)
     ms = cuda_ms(kernel)
-    in_graph_ms = graph_ms(kernel, n=10)
+    reps = 10
+    in_graph_ms = graph_ms(kernel, n=reps)
+    by_kernel = graph_kernel_ms(kernel, n=reps)
+    if by_kernel is None:
+        parts = "per kernel: not measured (the profiler saw no device time)"
+    else:
+        parts = "per kernel in a profiled graph replay: " + ", ".join(
+            f"{re.search(r'flash_bwd_[^(]*', name).group(0)} {ms_k:.4f} ms "
+            f"({seen} of {reps} launches recorded)"
+            for name, (ms_k, seen) in sorted(by_kernel.items(),
+                                             key=lambda kv: -kv[1][0])
+            if "flash_bwd_" in name)
     plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout),
                        reps=3)
     qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
@@ -1753,7 +1805,8 @@ def phase_train_replay(dev):
         f"{flops / in_graph_ms / 1e9:.1f} TFLOP/s, {in_graph_ms / lib_ms:.3f}"
         f" x sdpa backward; plain {plain_ms:.4f} ms, sdpa backward "
         f"{lib_ms:.4f} ms = {flops / lib_ms / 1e9:.1f} TFLOP/s, bound "
-        f"{max(ops_ms, bytes_ms):.6f} ms ({flops} flops, {nbytes} bytes) "
+        f"{max(ops_ms, bytes_ms):.6f} ms ({flops} flops, {nbytes} bytes); "
+        f"{parts}; earlier {EARLIER['flash_attention_bwd']} "
         f"[{card_label()}]")
     return dict(ms=ms, graph_ms=in_graph_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, max_abs_err=err,
@@ -1864,8 +1917,8 @@ def main(argv=None) -> int:
     log("build: flash backward dynamic shared memory per CTA: " + ", ".join(
         f"{name} D={d} {fb.flash_bwd_smem_bytes(code, which, d)} bytes"
         for code, which, name in (
-            (1, 0, "flash_bwd_dkdv_mma_kernel"),
-            (1, 1, "flash_bwd_dq_mma_kernel"),
+            (1, 0, "flash_bwd_dkdv_wgmma_kernel"),
+            (1, 1, "flash_bwd_dq_wgmma_kernel"),
             (0, 0, "flash_bwd_dkdv_kernel"), (0, 1, "flash_bwd_dq_kernel"))
         for d in flash.HEAD_DIMS))
 
@@ -1938,7 +1991,8 @@ def main(argv=None) -> int:
         "graph_ms": row["graph_ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
-        "train_fwd_launches": train_launches["flash_attention_fwd"]})
+        "train_fwd_launches": train_launches["flash_attention_fwd"],
+        "earlier": "PERF.md §6"})
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": record}))
     print(card_label())

@@ -3,10 +3,12 @@
 Every kernel source (``kernels/<name>/<name>.cu``) has a plain C
 interface. It is compiled with ``nvcc`` for ``sm_90a`` at its first use
 into ``build/repro_torch_ext/`` at the repository root, as a shared
-library whose name carries the hash of the source and the flags (so an
-edited source rebuilds), and loaded with ``ctypes``. No PyTorch header
-is compiled, so a build takes seconds. :func:`build_all` starts one
-``nvcc`` per source, all at once, and waits for them together.
+library whose name carries the hash of the source, of every ``*.cuh``
+header beside it and of the flags (so an edited source or header
+rebuilds), and loaded with ``ctypes``. The source's directory is on
+nvcc's include path. No PyTorch header is compiled, so a build takes
+seconds. :func:`build_all` starts one ``nvcc`` per source, all at once,
+and waits for them together.
 
 Each source exports ``<prefix>_error_string(int)`` next to its launchers;
 each launcher returns ``cudaGetLastError()`` right after its launch, and
@@ -70,11 +72,15 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def path(self) -> Path:
-        """Where the library for the current source and flags lives:
-        ``build/repro_torch_ext/<prefix>_<hash>.so``."""
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"{self.prefix}_{digest[:16]}.so"
+        """Where the library for the current source, headers and flags
+        lives: ``build/repro_torch_ext/<prefix>_<hash>.so``, the hash over
+        the source, each ``*.cuh`` of its directory (name and bytes, sorted
+        by name) and the flags."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.prefix}_{h.hexdigest()[:16]}.so"
 
     def _start(self) -> Optional[Tuple[subprocess.Popen, Path, List[str],
                                        float]]:
@@ -86,7 +92,8 @@ class CudaLibrary:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(self.source.parent), "-o",
+               str(tmp), str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, cmd, time.perf_counter()

@@ -20,7 +20,7 @@ row's logsumexp, which the backward reads.
 :func:`flash_attention_bwd` is the backward: the kernels of
 ``flash_attention_bwd.cu`` (no Pallas counterpart: they replace the
 reference's plain-JAX custom VJP ``_blockwise_bwd``,
-``repro/models/attention.py:150``) give dq, dk and dv from ``(q, k, v,
+``repro/models/attention.py:142``) give dq, dk and dv from ``(q, k, v,
 out, lse, dout)``; its plain version is :func:`ref.attention_bwd_ref`.
 One call counts one launch under ``"flash_attention_bwd"``.
 

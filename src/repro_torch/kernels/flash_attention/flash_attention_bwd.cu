@@ -3,7 +3,7 @@
 //
 // The TPU side has no Pallas backward: the reference differentiates its
 // blockwise attention through the custom VJP _blockwise_bwd
-// (src/repro/models/attention.py:150), a scan over key blocks that
+// (src/repro/models/attention.py:142), a scan over key blocks that
 // recomputes each block's probabilities from the forward's (out, lse).
 // These kernels compute the same gradients (the flash-attention-2
 // backward) for q (B, H, Sq, D) against k, v (B, Hk, Sk, D) with
@@ -23,32 +23,39 @@
 // pair, about 4.1e11, on 0.27 GB of inputs and outputs: the tensor cores
 // (989 TFLOP/s bf16), not HBM, bound it.
 //
-// Design. No float atomics, so a result is the same bit for bit from run
-// to run (training resumes bit-exactly). Three kernels on one stream:
+// Design. No atomics of any kind: every output element is written once by
+// one CTA, its sums in a fixed order, so a result is the same bit for bit
+// from run to run (training resumes bit-exactly). The price is that S and
+// dP are computed twice, once for dK/dV and once for dQ: 7 products a
+// live pair (14 D flops) against the bound's 8 D. Three kernels on one
+// stream:
 //   flash_bwd_delta_kernel: one warp per query row, delta_i in fp32.
-//   dK/dV: one CTA per (key tile of 64, kv head, batch). K and V stay in
+//   dK/dV: one CTA per (key tile, kv head, batch). K and V stay in
 //     shared memory; the CTA walks every query head of its GQA group and
 //     every query tile that sees one of its keys, recomputes S and dP,
 //     and accumulates dK and dV in registers. Each kv head's dK and dV are
 //     written once, directly: no expanded (B, S, H, D) buffer and no
 //     reduction pass.
-//   dQ: one CTA per (query tile of 64, head, batch); Q, dO, lse and delta
-//     stay in shared memory, the CTA walks the key tiles its rows can see,
-//     recomputes S and dP and accumulates dQ in registers.
+//   dQ: one CTA per (query tile, head, batch); Q, dO, lse and delta stay
+//     on chip, the CTA walks the key tiles its rows can see, recomputes S
+//     and dP and accumulates dQ in registers.
 // The tiles that do the most causal work are launched first.
-//   bfloat16 (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel): the
-//     products on the tensor cores with mma.sync (see namespace mma);
-//     P and dS are rounded to bf16 as operands of the dV, dK and dQ
-//     products, as the forward rounds P for P V.
+//   bfloat16 (flash_bwd_dkdv_wgmma_kernel, flash_bwd_dq_wgmma_kernel):
+//     warp-specialised wgmma kernels fed by TMA (see namespace wg); P and
+//     dS are rounded to bf16 as operands of the dV, dK and dQ products, as
+//     the forward rounds P for P V, and dS is made from the bf16 P.
 //   float32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): fp32 on the CUDA
 //     cores, for the reference's fp32 tolerance, as the forward's fp32
 //     kernel: 256 threads as a 16 x 16 grid of 4 x 4 micro tiles over fp32
 //     tiles padded by one column, P and dS through shared memory.
+#include <cuda.h>          // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -365,357 +372,503 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------- bf16: the tensor cores
 
-// The bf16 kernels compute the same gradients with mma.sync m16n8k16
-// (bf16 operands, fp32 accumulators) on tiles kept bf16 in shared
-// memory. One CTA of 4 warps per 64-row tile; each warp owns 16 rows of
-// the CTA's tile and walks the other side 16 rows (a "chunk") at a time.
-// S and dP come out of the tensor cores in the accumulator layout, are
-// turned into P and dS in registers, and are rounded to bf16 as the A
-// operand of the next product (the accumulator layout of two 8-column
-// tiles is the A layout of one 16-deep step), so P and dS never touch
-// shared memory. Operands whose rows run along the reduction (dO and Q
-// for dV and dK, K for dQ) are read with ldmatrix.trans. Rows are padded
-// by 8 elements (16 bytes) so the fragment loads are free of bank
-// conflicts.
-namespace mma {
+// The bf16 kernels: wgmma on the tensor cores, fed by TMA. Each CTA has
+// 384 threads: two consumer warpgroups and one producer warpgroup, which
+// hands its registers to the consumers (setmaxnreg 24 / 240) and of which
+// one thread issues every TMA load. Tiles stay bf16 in shared memory as
+// swizzle atoms (hopper.cuh), loaded through (D, S, B * heads) tensor maps
+// whose box is 64 rows of one head, so the hardware's zero fill stops at
+// each head's own end. A CTA loads its own tiles once, then the producer
+// keeps a ring of kStages stages of 64 rows of the other side full: one
+// mbarrier marks a stage full (its TMA bytes and, in the dK/dV kernel, its
+// lse and delta rows stored by the producer warp's 32 lanes), a second one
+// marks it empty (one arrival per consumer warp). The stage counter runs
+// on across heads, so one parity arithmetic serves the whole ring.
+//
+// A consumer computes a 64 x 64 score tile of a stage with wgmma
+// m64n64k16, both operands K-major from shared memory, turns it into P or
+// dS in registers in the accumulator layout (base-2 exponentials with the
+// log2(e) / sqrt(D) scale in one FMA; the mask only on tiles that cross
+// the diagonal, Sq or Sk), rounds it to bf16 as the A operand of the next
+// product (the accumulator layout of 16 columns is the A layout of a
+// 16-deep step) and accumulates a gradient with register-A wgmma
+// m64n{D}k16, B read MN-major from shared memory. P is rounded to bf16 as
+// soon as it is made and dS is computed from that bf16 P. A stage's
+// gradient product is left in flight while the next stage's score product
+// is issued; the stage's slot is handed back when it is done.
+//
+// Registers shaped the design. ptxas gives a consumer the 240 registers of
+// setmaxnreg, but issues every wgmma of a kernel one at a time (its C7512
+// note) once a consumer holds much more than 168: a warpgroup that keeps
+// dK and dV (128 registers at D = 128) beside S^T and dP^T (64) spills and
+// runs serialized. So no consumer holds two accumulators, or two score
+// tiles, at once:
+// flash_bwd_dkdv_wgmma_kernel: one CTA per (key tile of 64, kv head,
+//   batch). K and V are loaded once; the ring holds (Q, dO) of 64 query
+//   rows of every query head of the GQA group and every query tile that
+//   sees a key of the CTA. Both warpgroups own the tile's 64 keys:
+//   warpgroup 0 computes S^T = K Q^T, P and dV += P^T dO; warpgroup 1
+//   computes dP^T = V dO^T, takes the stage's P from warpgroup 0 through
+//   shared memory (named barrier 1 + slot), makes dS and dK += dS^T Q.
+//   Each stores its gradient once, summed over the whole group.
+// flash_bwd_dq_wgmma_kernel: one CTA per (query tile of 128, head,
+//   batch); warpgroup wg owns query rows q0 + 64 wg .. + 63. Q, dO, lse
+//   and delta are loaded once; the ring holds (K, V) of 64 keys up to the
+//   last key a row of the tile sees. Per stage: S = Q K^T, P, then
+//   dP = dO V^T (into S's registers), dS and dQ += dS K.
+// Shared memory at D = 128: dK/dV 2 x 16 KB once + 2 stages x (2 x 16 KB +
+// 8 KB of P) + 1 KB of lse and delta rows = 113 KB; dQ 2 x 32 KB once +
+// 2 stages x 2 x 16 KB = 128 KB; one CTA per SM.
+namespace wg {
 
-constexpr int kBlk = 64;               // rows per CTA tile
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr float kLog2e = 1.4426950408889634f;
-
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-template <int D>
-struct Layout {
-  static constexpr int kStride = D + 8;           // bf16 per tile row
-  static constexpr int kTile = kBlk * kStride;    // bf16 per tile
-  // Four bf16 tiles, then lse * log2(e) and delta of the query tile.
-  static constexpr size_t kSmem = 4 * kTile * sizeof(bf16) +
-                                  2 * kBlk * sizeof(float);
+constexpr int kTile = 128;           // query rows of a dQ CTA
+constexpr int kRows = 64;            // keys of a dK/dV CTA, rows of a stage
+constexpr int kStages = 2;           // ring depth
+constexpr int kConsumerWarps = 8;    // two warpgroups
+constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The shared-memory layout of both kernels: two tiles of kOnce rows
+// loaded once, then kStages x two tiles of kRows rows; in the dK/dV
+// kernel then kStages x P (the 16 bf16-pair words of each of a
+// warpgroup's 128 threads, word i of every thread in row i) and kStages x
+// (lse * log2(e), delta) of kRows query rows; then the mbarriers.
+template <int D, int kOnce, bool kDkdv>
+struct Smem {
+  static constexpr uint32_t kTileBytes = kOnce * D * 2;
+  static constexpr uint32_t kStageBytes = kRows * D * 2;
+  static constexpr uint32_t kPOffset =
+      2 * kTileBytes + 2 * kStages * kStageBytes;
+  static constexpr uint32_t kPWords = 16 * 128;    // a stage's P
+  static constexpr uint32_t kRowsOffset =
+      kPOffset + (kDkdv ? kStages * kPWords * 4 : 0);
+  static constexpr uint32_t kBarrierOffset =
+      kRowsOffset + (kDkdv ? kStages * 2 * kRows * sizeof(float) : 0);
+  // + the barriers, + slack to align the base to 1024 bytes.
+  static constexpr size_t kSmem = kBarrierOffset + 64 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col).
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment at rows m0.., columns k0.. of a [rows][kStride] tile
-// whose reduction dim is contiguous.
 template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int m0, int k0, int lane) {
-  constexpr int S = Layout<D>::kStride;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = tile + (m0 + g) * S + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * S);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * S + 8);
-}
-
-// The B fragment (16 deep, 8 wide) at rows n0.. (the fragment's columns),
-// columns k0.. of a tile whose reduction dim is contiguous.
+using DkdvSmem = Smem<D, kRows, true>;
 template <int D>
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* tile, int n0, int k0,
-                                       int lane) {
-  constexpr int S = Layout<D>::kStride;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = tile + (n0 + g) * S + k0 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
+using DqSmem = Smem<D, kTile, false>;
 
-// The B fragment at rows k0 .. k0 + 15 (the reduction), columns n0 ..
-// n0 + 7 of a tile stored along rows: ldmatrix.trans, lanes 0-15 naming
-// the 16 rows.
+// Rows [r0, r0 + rows) of head `head` into a tile of `rows` rows, one box
+// of kRows rows per swizzle atom and 64-row block.
 template <int D>
-__device__ __forceinline__ void load_b_trans(uint32_t& b0, uint32_t& b1,
-                                             const bf16* tile, int k0,
-                                             int n0, int lane) {
-  constexpr int S = Layout<D>::kStride;
-  const uint32_t addr = smem_u32(tile + (k0 + (lane & 15)) * S + n0);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(b0), "=r"(b1)
-      : "r"(addr));
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int rows, int r0,
+                                         int head) {
+  using A = Atom<D>;
+#pragma unroll
+  for (int a = 0; a < A::kCount; ++a)
+    for (int r = 0; r < rows; r += kRows)
+      tma_load_3d(dst + (a * rows + r) * A::kBytes, map, bar, a * A::kCols,
+                  r0 + r, head);
 }
 
-// Rows [r0, r0 + kBlk) of a (rows, D) bf16 matrix into a padded tile in
-// 16-byte vectors; rows >= n are zero.
+// K-major operand: rows row0 .. row0 + 63 (M of A, or N of B) of a tile
+// of `rows` rows, reduction step kk (columns 16 kk .. 16 kk + 15).
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
-                                          int n) {
-  constexpr int S = Layout<D>::kStride;
-  constexpr int kVec = D / 8;   // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < kBlk * kVec; idx += kThreads) {
-    const int r = idx / kVec, c = (idx % kVec) * 8;
-    const int g = r0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (g < n)
-      val = *reinterpret_cast<const uint4*>(src + static_cast<int64_t>(g) * D +
-                                            c);
-    *reinterpret_cast<uint4*>(dst + r * S + c) = val;
-  }
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int row0,
+                                           int kk) {
+  using A = Atom<D>;
+  const uint32_t off = ((kk * 16 / A::kCols) * rows + row0) * A::kBytes +
+                       (kk * 16 % A::kCols) * 2;
+  return make_desc(tile + off, 16, 8 * A::kBytes, A::kLayout);
 }
 
-// lse (in base 2) and delta of query rows [q0, q0 + kBlk).
-__device__ __forceinline__ void load_rows(float* ls, float* ds,
-                                          const float* lse,
-                                          const float* delta, int64_t base,
-                                          int q0, int Sq) {
-  for (int r = threadIdx.x; r < kBlk; r += kThreads) {
-    const int g = q0 + r;
-    ls[r] = g < Sq ? lse[base + g] * kLog2e : 0.f;
-    ds[r] = g < Sq ? delta[base + g] : 0.f;
+// MN-major B operand: rows 16 kk .. 16 kk + 15 (the reduction) and all D
+// columns of a tile of `rows` rows; the atoms along D lie `rows` rows
+// apart.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
+  using A = Atom<D>;
+  return make_desc(tile + kk * 16 * A::kBytes, rows * A::kBytes,
+                   8 * A::kBytes, A::kLayout);
+}
+
+// The bf16 A fragments of a 64 x 64 accumulator, four 16-deep steps.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// Rows `row` and row + 8 of a 64 x D accumulator into a (rows, D) bf16
+// matrix; rows >= n are not stored.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 2],
+                                           int row, int c0, int n) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int g = row + 8 * r;
+    if (g >= n) continue;
+    bf16* out = dst + static_cast<int64_t>(g) * D + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                          int Hk, int Sq, int Sk, int causal, int q_offset,
-                          float sm_scale) {
-  using L = Layout<D>;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + L::kTile;
-  bf16* Qs = Vs + L::kTile;
-  bf16* Gs = Qs + L::kTile;     // dO
-  float* Ls = reinterpret_cast<float*>(Gs + L::kTile);
-  float* Ds = Ls + kBlk;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap g_map,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int H, int Hk, int Sq, int Sk, int causal,
+                            int q_offset, float sm_scale) {
+  using L = DkdvSmem<D>;
+  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sK = base;                          // [atoms][kRows rows]
+  const uint32_t sV = sK + L::kTileBytes;
+  const uint32_t sQ = sV + L::kTileBytes;            // [kStages] stage tiles
+  const uint32_t sG = sQ + kStages * L::kStageBytes; // dO, [kStages]
+  uint32_t* pbuf = reinterpret_cast<uint32_t*>(gbase + L::kPOffset);
+  float* rows = reinterpret_cast<float*>(gbase + L::kRowsOffset);
+  const uint32_t kv_full = base + L::kBarrierOffset;  // then full, empty
+  const uint32_t full0 = kv_full + 8;
+  const uint32_t empty0 = full0 + 8 * kStages;
 
-  const int bhk = blockIdx.x;
+  const int bhk = blockIdx.x;                  // b * Hk + hk
   const int b = bhk / Hk;
   const int hk = bhk - b * Hk;
-  const int k0 = blockIdx.y * kBlk;    // the heaviest (first) key tiles first
+  const int k0 = blockIdx.y * kRows;           // the heaviest tiles first
   const int rep = H / Hk;
+  // Query rows that see key k0 or later: i + q_offset >= k0.
+  const int q_first = causal ? max(0, k0 - q_offset) / kRows * kRows : 0;
+  const int n_q = q_first < Sq ? (Sq - q_first + kRows - 1) / kRows : 0;
+  const int n_stages = rep * n_q;
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int kr = 16 * warp;            // this warp's key rows in the tile
-  const float scale_log2 = sm_scale * kLog2e;
-  const int64_t kv_off = static_cast<int64_t>(bhk) * Sk * D;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1 + 32);   // the TMA bytes + 32 lanes' rows
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  load_tile<D>(Ks, k + kv_off, k0, Sk);
-  load_tile<D>(Vs, v + kv_off, k0, Sk);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  const int q_first = causal ? max(0, k0 - q_offset) / kBlk * kBlk : 0;
-  for (int h = hk * rep; h < (hk + 1) * rep; ++h) {
-    const int64_t bh = static_cast<int64_t>(b) * H + h;
-    for (int q0 = q_first; q0 < Sq; q0 += kBlk) {
-      __syncthreads();   // the previous tiles are consumed
-      load_tile<D>(Qs, q + bh * Sq * D, q0, Sq);
-      load_tile<D>(Gs, dout + bh * Sq * D, q0, Sq);
-      load_rows(Ls, Ds, lse, delta, bh * Sq, q0, Sq);
-      __syncthreads();
-#pragma unroll 1
-      for (int c = 0; c < kBlk; c += 16) {
-        // Every query of the chunk is before every key of this warp.
-        if (causal && q0 + c + 15 + q_offset < k0 + kr) continue;
-        float s[2][4] = {}, dp[2][4] = {};
-#pragma unroll
-        for (int kk = 0; kk < D; kk += 16) {
-          uint32_t a[4], b0, b1;
-          load_a<D>(a, Ks, kr, kk, lane);
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            load_b<D>(b0, b1, Qs, c + 8 * nt, kk, lane);
-            mma16816(s[nt], a, b0, b1);
-          }
-          load_a<D>(a, Vs, kr, kk, lane);
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            load_b<D>(b0, b1, Gs, c + 8 * nt, kk, lane);
-            mma16816(dp[nt], a, b0, b1);
-          }
+  if (warp >= kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == kConsumerWarps) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * L::kTileBytes);
+        tma_tile<D>(sK, &k_map, kv_full, kRows, k0, bhk);
+        tma_tile<D>(sV, &v_map, kv_full, kRows, k0, bhk);
+      }
+      for (int t = 0; t < n_stages; ++t) {
+        const int s = t % kStages;
+        const int q0 = q_first + (t % n_q) * kRows;
+        const int bh = b * H + hk * rep + t / n_q;
+        const uint32_t full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * L::kStageBytes);
+          tma_tile<D>(sQ + s * L::kStageBytes, &q_map, full, kRows, q0, bh);
+          tma_tile<D>(sG + s * L::kStageBytes, &g_map, full, kRows, q0, bh);
         }
-        // s[nt][e]: key row kr + g + 8 (e / 2), query column
-        // c + 8 nt + 2 t + e % 2 of the tiles.
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kj = k0 + kr + g + 8 * (e >> 1);
-            const int ql = c + 8 * nt + 2 * t + (e & 1);
-            const int qi = q0 + ql;
-            const bool live =
-                qi < Sq && kj < Sk && (!causal || kj <= qi + q_offset);
-            const float p =
-                live ? exp2f(fmaf(s[nt][e], scale_log2, -Ls[ql])) : 0.f;
-            s[nt][e] = p;
-            dp[nt][e] = p * (dp[nt][e] - Ds[ql]) * sm_scale;
-          }
-        const uint32_t pa[4] = {pack(s[0][0], s[0][1]), pack(s[0][2], s[0][3]),
-                                pack(s[1][0], s[1][1]), pack(s[1][2], s[1][3])};
-        const uint32_t da[4] = {pack(dp[0][0], dp[0][1]),
-                                pack(dp[0][2], dp[0][3]),
-                                pack(dp[1][0], dp[1][1]),
-                                pack(dp[1][2], dp[1][3])};
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          uint32_t b0, b1;
-          load_b_trans<D>(b0, b1, Gs, c, 8 * n, lane);
-          mma16816(dv_acc[n], pa, b0, b1);
-          load_b_trans<D>(b0, b1, Qs, c, 8 * n, lane);
-          mma16816(dk_acc[n], da, b0, b1);
+        float* ls = rows + s * 2 * kRows;
+        for (int r = lane; r < kRows; r += 32) {
+          const int g = q0 + r;
+          const int64_t at = static_cast<int64_t>(bh) * Sq + g;
+          ls[r] = g < Sq ? lse[at] * kLog2e : 0.f;
+          ls[kRows + r] = g < Sq ? delta[at] : 0.f;
         }
+        mbar_arrive(full);
       }
     }
+    return;
   }
 
+  // Consumers: both warpgroups own keys [k0, k0 + 64), this thread key
+  // rows rk and rk + 8 of the accumulator layout. Warpgroup 0 makes P and
+  // dV, warpgroup 1 dP, dS and dK: each holds one 64 x D accumulator, so
+  // neither runs out of registers. Warpgroup 0 hands each stage's P (bf16,
+  // in its accumulator layout, which is warpgroup 1's dP^T layout) over
+  // through shared memory and named barrier 1 + stage slot.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = warp / 4;
+  const int tid = threadIdx.x % 128;
+  const int rk = k0 + 16 * (warp % 4) + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const float scale_log2 = sm_scale * kLog2e;
+
+  float acc[D / 2];   // dV (warpgroup 0) or dK (warpgroup 1)
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int kj = k0 + kr + g + 8 * half;
-    if (kj >= Sk) continue;
-    const int64_t off = kv_off + static_cast<int64_t>(kj) * D + 2 * t;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  // A stage's gradient product is left in flight while the next stage's
+  // score product is issued; the stage's slot is handed back once its
+  // product is done (`held`: the slot whose product may still run).
+  uint32_t pa[4][4];
+  int held = -1;
+  for (int t = 0; t < n_stages; ++t) {
+    const int s = t % kStages;
+    const int q0 = q_first + (t % n_q) * kRows;
+    mbar_wait(full0 + 8 * s, (t / kStages) & 1);
+    // Every stage holds a query that sees a key of the tile (q_first).
+    const uint32_t q_s = sQ + s * L::kStageBytes;
+    const uint32_t g_s = sG + s * L::kStageBytes;
+    const float* ls = rows + s * 2 * kRows;
+    uint32_t* ps = pbuf + s * L::kPWords + tid;
+    float sc[32];   // S^T or dP^T: keys x queries
+    // sc[4 j + e] is key rk + 8 (e / 2), query q0 + 8 j + c0 + e % 2.
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n) =
-          __floats2bfloat162_rn(dk_acc[n][2 * half], dk_acc[n][2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * n) =
-          __floats2bfloat162_rn(dv_acc[n][2 * half], dv_acc[n][2 * half + 1]);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(sc, desc_k<D>(wg == 0 ? sK : sV, kRows, 0, kk),
+                   desc_k<D>(wg == 0 ? q_s : g_s, kRows, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous stage's product is done
+    if (held >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * held);
     }
+    wgmma_wait_all();
+    fence_regs(sc);
+    if (wg == 0) {
+      const bool edge = k0 + kRows > Sk || q0 + kRows > Sq ||
+                        (causal && k0 + kRows - 1 > q0 + q_offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float l2 = ls[8 * (i >> 2) + c0 + (i & 1)];
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, -l2));
+        if (edge) {
+          const int kj = rk + 8 * ((i >> 1) & 1);
+          const int qi = q0 + 8 * (i >> 2) + c0 + (i & 1);
+          if (kj >= Sk || qi >= Sq || (causal && kj > qi + q_offset))
+            sc[i] = 0.f;
+        }
+      }
+      pack_a(pa, sc);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) ps[128 * i] = pa[i / 4][i % 4];
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + s) : "memory");
+    } else {
+      asm volatile("bar.sync %0, 256;\n" ::"r"(1 + s) : "memory");
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pa[i / 4][i % 4] = ps[128 * i];
+      // dS = P (dP - delta) / sqrt(D) from the bf16 P that dV uses.
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const uint32_t pair = pa[i / 8][(i % 8) / 2];
+        const float pv = __uint_as_float((i & 1) ? pair & 0xFFFF0000u
+                                                 : pair << 16);
+        sc[i] = pv * (sc[i] - ls[kRows + 8 * (i >> 2) + c0 + (i & 1)]) *
+                sm_scale;
+      }
+      pack_a(pa, sc);
+    }
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1).
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(acc, pa[kk], desc_mn<D>(wg == 0 ? g_s : q_s, kRows, kk));
+    wgmma_commit();
+    held = s;
   }
+  wgmma_wait_all();
+  fence_regs(acc);
+  __syncwarp();
+  if (held >= 0 && lane == 0) mbar_arrive(empty0 + 8 * held);
+
+  const int64_t kv_off = static_cast<int64_t>(bhk) * Sk * D;
+  store_rows<D>((wg == 0 ? dv : dk) + kv_off, acc, rk, c0, Sk);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int H, int Hk, int Sq, int Sk,
-                        int causal, int q_offset, float sm_scale) {
-  using L = Layout<D>;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Gs = Qs + L::kTile;     // dO
-  bf16* Ks = Gs + L::kTile;
-  bf16* Vs = Ks + L::kTile;
-  float* Ls = reinterpret_cast<float*>(Vs + L::kTile);
-  float* Ds = Ls + kBlk;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap g_map,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int H, int Hk, int Sq,
+                          int Sk, int causal, int q_offset, float sm_scale) {
+  using L = DqSmem<D>;
+  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;                          // [atoms][kTile rows]
+  const uint32_t sG = sQ + L::kTileBytes;            // dO
+  const uint32_t sK = sG + L::kTileBytes;            // [kStages] stage tiles
+  const uint32_t sV = sK + kStages * L::kStageBytes;
+  const uint32_t q_full = base + L::kBarrierOffset;  // then full, empty
+  const uint32_t full0 = q_full + 8;
+  const uint32_t empty0 = full0 + 8 * kStages;
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x;                         // b * H + h
   const int b = bh / H;
   const int hk = (bh - b * H) / (H / Hk);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlk;   // the heaviest first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int qr = 16 * warp;            // this warp's query rows in the tile
-  const float scale_log2 = sm_scale * kLog2e;
-  const int64_t q_off = static_cast<int64_t>(bh) * Sq * D;
-  const int64_t kv_off = (static_cast<int64_t>(b) * Hk + hk) * Sk * D;
-
-  load_tile<D>(Qs, q + q_off, q0, Sq);
-  load_tile<D>(Gs, dout + q_off, q0, Sq);
-  load_rows(Ls, Ds, lse, delta, static_cast<int64_t>(bh) * Sq, q0, Sq);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;   // the heaviest first
+  // Keys past the last one a row of this tile can see are masked for
+  // every row: their stages are never loaded.
   int kv_end = Sk;
-  if (causal) kv_end = min(Sk, min(q0 + kBlk, Sq) + q_offset);
-  for (int k0 = 0; k0 < kv_end; k0 += kBlk) {
-    __syncthreads();   // the previous key tile is consumed
-    load_tile<D>(Ks, k + kv_off, k0, Sk);
-    load_tile<D>(Vs, v + kv_off, k0, Sk);
-    __syncthreads();
-#pragma unroll 1
-    for (int c = 0; c < kBlk; c += 16) {
-      // Every key of the chunk is after every query of this warp.
-      if (causal && k0 + c > q0 + qr + 15 + q_offset) continue;
-      float s[2][4] = {}, dp[2][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        uint32_t a[4], b0, b1;
-        load_a<D>(a, Qs, qr, kk, lane);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          load_b<D>(b0, b1, Ks, c + 8 * nt, kk, lane);
-          mma16816(s[nt], a, b0, b1);
-        }
-        load_a<D>(a, Gs, qr, kk, lane);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          load_b<D>(b0, b1, Vs, c + 8 * nt, kk, lane);
-          mma16816(dp[nt], a, b0, b1);
-        }
-      }
-      // s[nt][e]: query row qr + g + 8 (e / 2), key column
-      // c + 8 nt + 2 t + e % 2 of the tiles.
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = qr + g + 8 * (e >> 1);
-          const int qi = q0 + ql;
-          const int kj = k0 + c + 8 * nt + 2 * t + (e & 1);
-          const bool live =
-              qi < Sq && kj < Sk && (!causal || kj <= qi + q_offset);
-          const float p =
-              live ? exp2f(fmaf(s[nt][e], scale_log2, -Ls[ql])) : 0.f;
-          dp[nt][e] = p * (dp[nt][e] - Ds[ql]) * sm_scale;
-        }
-      const uint32_t da[4] = {pack(dp[0][0], dp[0][1]), pack(dp[0][2], dp[0][3]),
-                              pack(dp[1][0], dp[1][1]),
-                              pack(dp[1][2], dp[1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b_trans<D>(b0, b1, Ks, c, 8 * n, lane);
-        mma16816(acc[n], da, b0, b1);
+  if (causal) kv_end = min(Sk, min(q0 + kTile, Sq) + q_offset);
+  const int n_tiles = (kv_end + kRows - 1) / kRows;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == kConsumerWarps && lane == 0) {
+      mbar_expect_tx(q_full, 2 * L::kTileBytes);
+      tma_tile<D>(sQ, &q_map, q_full, kTile, q0, bh);
+      tma_tile<D>(sG, &g_map, q_full, kTile, q0, bh);
+      const int kvh = b * Hk + hk;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        const uint32_t full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::kStageBytes);
+        tma_tile<D>(sK + s * L::kStageBytes, &k_map, full, kRows, t * kRows,
+                    kvh);
+        tma_tile<D>(sV + s * L::kStageBytes, &v_map, full, kRows, t * kRows,
+                    kvh);
       }
     }
+    return;
   }
 
+  // Consumers: warpgroup wg owns query rows [row_wg, row_wg + 64); this
+  // thread holds rows r0 and r0 + 8 of the accumulator layout.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = warp / 4;
+  const int row_wg = q0 + wg * kRows;
+  const int r0 = row_wg + 16 * (warp % 4) + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const float scale_log2 = sm_scale * kLog2e;
+  float l2[2], d2[2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int qi = q0 + qr + g + 8 * half;
-    if (qi >= Sq) continue;
-    const int64_t off = q_off + static_cast<int64_t>(qi) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dq + off + 8 * n) =
-          __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
+  for (int r = 0; r < 2; ++r) {
+    const int g = r0 + 8 * r;
+    const int64_t at = static_cast<int64_t>(bh) * Sq + g;
+    l2[r] = g < Sq ? lse[at] * kLog2e : 0.f;
+    d2[r] = g < Sq ? delta[at] : 0.f;
   }
+  // The first key none of this warpgroup's rows sees.
+  int wg_end = row_wg < Sq ? Sk : 0;
+  if (causal && row_wg < Sq)
+    wg_end = min(Sk, min(row_wg + kRows, Sq) + q_offset);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  // A stage's dQ product is left in flight while the next stage's S is
+  // issued; the stage's K/V slot is handed back once its product is done
+  // (`held`: the slot whose product may still run).
+  uint32_t da[4][4];
+  int held = -1;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const int kt0 = t * kRows;
+    mbar_wait(full0 + 8 * s, (t / kStages) & 1);
+    if (kt0 < wg_end) {
+      const uint32_t k_s = sK + s * L::kStageBytes;
+      const uint32_t v_s = sV + s * L::kStageBytes;
+      // S, P rounded to bf16 at once, then dP into S's registers: S and
+      // dP are never held together beside dQ and the product in flight.
+      float sc[32];   // S, then dP: queries x keys
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, desc_k<D>(sQ, kTile, wg * kRows, kk),
+                     desc_k<D>(k_s, kRows, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();   // the previous stage's dQ product is done
+      if (held >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * held);
+      }
+      wgmma_wait_all();
+      fence_regs(sc);
+      // sc[4 j + e] is row r0 + 8 (e / 2), key kt0 + 8 j + c0 + e % 2.
+      const bool edge = kt0 + kRows > Sk || row_wg + kRows > Sq ||
+                        (causal && kt0 + kRows - 1 > row_wg + q_offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, -l2[r]));
+        if (edge) {
+          const int qi = r0 + 8 * r;
+          const int kj = kt0 + 8 * (i >> 2) + c0 + (i & 1);
+          if (kj >= Sk || qi >= Sq || (causal && kj > qi + q_offset))
+            sc[i] = 0.f;
+        }
+      }
+      uint32_t pa[4][4];
+      pack_a(pa, sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, desc_k<D>(sG, kTile, wg * kRows, kk),
+                     desc_k<D>(v_s, kRows, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const uint32_t pair = pa[i / 8][(i % 8) / 2];
+        const float pv = __uint_as_float((i & 1) ? pair & 0xFFFF0000u
+                                                 : pair << 16);
+        sc[i] = pv * (sc[i] - d2[(i >> 1) & 1]) * sm_scale;
+      }
+      pack_a(da, sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D>(acc, da[kk], desc_mn<D>(k_s, kRows, kk));
+      wgmma_commit();
+      held = s;
+    } else {
+      // Past this warpgroup's last key: hand back the held slot and this.
+      wgmma_wait_all();
+      __syncwarp();
+      if (lane == 0) {
+        if (held >= 0) mbar_arrive(empty0 + 8 * held);
+        mbar_arrive(empty0 + 8 * s);
+      }
+      held = -1;
+    }
+  }
+  wgmma_wait_all();
+  fence_regs(acc);
+  __syncwarp();
+  if (held >= 0 && lane == 0) mbar_arrive(empty0 + 8 * held);
+
+  store_rows<D>(dq + static_cast<int64_t>(bh) * Sq * D, acc, r0, c0, Sq);
 }
 
-}  // namespace mma
+}  // namespace wg
 
 // ------------------------------------------------------------- launch
 
@@ -738,22 +891,31 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    constexpr size_t smem = mma::Layout<D>::kSmem;
-    constexpr int blk = mma::kBlk;
-    err = set_smem_once(mma::flash_bwd_dkdv_mma_kernel<D>, smem, dkdv_set);
+    constexpr size_t dkdv_smem = wg::DkdvSmem<D>::kSmem;
+    constexpr size_t dq_smem = wg::DqSmem<D>::kSmem;
+    err = set_smem_once(wg::flash_bwd_dkdv_wgmma_kernel<D>, dkdv_smem,
+                        dkdv_set);
     if (err == cudaSuccess)
-      err = set_smem_once(mma::flash_bwd_dq_mma_kernel<D>, smem, dq_set);
+      err = set_smem_once(wg::flash_bwd_dq_wgmma_kernel<D>, dq_smem, dq_set);
     if (err != cudaSuccess) return static_cast<int>(err);
-    mma::flash_bwd_dkdv_mma_kernel<D>
-        <<<dim3(B * Hk, (Sk + blk - 1) / blk), mma::kThreads, smem, stream>>>(
-            qt, kt, vt, gt, lse, delta, static_cast<T*>(dk),
-            static_cast<T*>(dv), H, Hk, Sq, Sk, causal, q_offset, sm_scale);
+    // One set of maps, boxes of 64 rows, serves both kernels.
+    CUtensorMap qm, km, vm, gm;
+    int bad = hopper::encode<D>(&qm, q, Sq, B * H, wg::kRows);
+    if (!bad) bad = hopper::encode<D>(&gm, dout, Sq, B * H, wg::kRows);
+    if (!bad) bad = hopper::encode<D>(&km, k, Sk, B * Hk, wg::kRows);
+    if (!bad) bad = hopper::encode<D>(&vm, v, Sk, B * Hk, wg::kRows);
+    if (bad) return bad;
+    wg::flash_bwd_dkdv_wgmma_kernel<D>
+        <<<dim3(B * Hk, (Sk + wg::kRows - 1) / wg::kRows), wg::kThreads,
+           dkdv_smem, stream>>>(qm, km, vm, gm, lse, delta, static_cast<T*>(dk),
+                     static_cast<T*>(dv), H, Hk, Sq, Sk, causal, q_offset,
+                     sm_scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    mma::flash_bwd_dq_mma_kernel<D>
-        <<<dim3(B * H, (Sq + blk - 1) / blk), mma::kThreads, smem, stream>>>(
-            qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), H, Hk, Sq, Sk,
-            causal, q_offset, sm_scale);
+    wg::flash_bwd_dq_wgmma_kernel<D>
+        <<<dim3(B * H, (Sq + wg::kTile - 1) / wg::kTile), wg::kThreads,
+           dq_smem, stream>>>(qm, km, vm, gm, lse, delta, static_cast<T*>(dq), H, Hk,
+                     Sq, Sk, causal, q_offset, sm_scale);
   } else {
     constexpr size_t dkdv_smem = dkdv_smem_bytes<D>();
     constexpr size_t dq_smem = dq_smem_bytes<D>();
@@ -780,18 +942,22 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 extern "C" {
 
 const char* flash_bwd_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return hopper::error_string(err);
 }
 
 // Dynamic shared memory of one CTA of the dK/dV kernel (which = 0) or the
 // dQ kernel (which = 1) at head dim D; dtype 0 = float32 (the CUDA-core
-// kernels), 1 = bfloat16 (the tensor-core kernels, one size for both).
+// kernels), 1 = bfloat16 (the wgmma kernels, one layout for both).
 int64_t flash_bwd_smem_bytes(int dtype, int which, int D) {
   if (dtype == 1) {
     switch (D) {
-      case 32: return mma::Layout<32>::kSmem;
-      case 64: return mma::Layout<64>::kSmem;
-      case 128: return mma::Layout<128>::kSmem;
+      case 32:
+        return which == 0 ? wg::DkdvSmem<32>::kSmem : wg::DqSmem<32>::kSmem;
+      case 64:
+        return which == 0 ? wg::DkdvSmem<64>::kSmem : wg::DqSmem<64>::kSmem;
+      case 128:
+        return which == 0 ? wg::DkdvSmem<128>::kSmem
+                          : wg::DqSmem<128>::kSmem;
     }
     return -1;
   }
@@ -805,8 +971,8 @@ int64_t flash_bwd_smem_bytes(int dtype, int which, int D) {
 }
 
 // Launch the backward on `stream`: delta into `delta` (B * H * Sq fp32
-// scratch), then dK/dV and dQ. dtype 0 = float32, 1 = bfloat16. Returns 0
-// or the first cudaError_t.
+// scratch), then dK/dV and dQ. dtype 0 = float32, 1 = bfloat16. Returns 0,
+// the first cudaError_t, or a tensor-map code of flash_bwd_error_string.
 int flash_bwd_launch(const void* q, const void* k, const void* v,
                      const void* out, const void* dout, const void* lse,
                      void* delta, void* dq, void* dk, void* dv, int dtype,

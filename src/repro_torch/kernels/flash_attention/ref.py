@@ -55,7 +55,7 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of attention from the forward's ``out`` and
     ``lse``: the port of the reference's custom backward
-    ``_blockwise_bwd`` (``repro/models/attention.py:150``), a scan over
+    ``_blockwise_bwd`` (``repro/models/attention.py:142``), a scan over
     key blocks of :data:`BWD_BLOCK` that recomputes each block's
     probabilities ``p = exp(s - lse)``.
 

@@ -495,12 +495,18 @@ def test_flash_bwd_kernel_on_card(d, dtype):
     """The backward kernels against ``attention_bwd_ref`` on the same
     (out, lse), the forward kernels' lse against the plain one, and the
     backward's bits equal from run to run: causal GQA, rep 1 and 3,
-    Sq and Sk off the tile size, non-causal, q_offset."""
+    Sq and Sk off the tile size, non-causal, q_offset; and cases across
+    the bf16 kernels' tiles (64 keys a dK/dV CTA, 128 query rows a dQ
+    CTA, 64-row ring stages): partial key and query tiles on the
+    diagonal, several query stages and head switches in one ring, a key
+    tile that straddles q_offset."""
     _need_card()
     tol = GRAD_TOLS[dtype]
     for b, sq, sk, h, hk, causal, off in (
             (2, 256, 256, 6, 2, True, 0), (1, 130, 130, 4, 4, True, 0),
-            (1, 200, 136, 3, 1, False, 0), (1, 64, 256, 2, 2, True, 192)):
+            (1, 200, 136, 3, 1, False, 0), (1, 64, 256, 2, 2, True, 192),
+            (1, 200, 200, 2, 2, True, 0), (1, 384, 384, 6, 2, True, 0),
+            (1, 64, 320, 2, 1, True, 192)):
         rng = np.random.default_rng(sq + d)
         t = [tt(heads_first(x), dtype).cuda()
              for x in make_qkv(sq + d, b, sq, sk, h, hk, d)]
