@@ -55,7 +55,7 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                stated bounds, beside the floor of two plain formulations
                (naive and blockwise attention) of the same step;
   9. serve   — ``ServingEngine`` with the same model: 4 slots, max_len
-               512, 16-token pages, cost policy, 8 requests of a shared
+               512, 16-token pages, cost policy, 4 requests of a shared
                192-token system prompt plus 64 tokens each, 16 new
                tokens; every decode step (prompt replay included) goes
                through the paged kernel once per layer. The run is then
@@ -104,7 +104,50 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                512) at S 4096: 4 steps with a checkpoint after step 2;
                params, moments and the pipeline's state restored into
                fresh tensors and a fresh pipeline, steps 3-4 again:
-               losses and final parameters equal bit for bit.
+               losses and final parameters equal bit for bit;
+ 15. moe-prefill — deepseek-moe-16b at full width and depth (28
+               layers, 16 / 16 heads, 64 experts of 1408 top-6 + 2
+               shared, capacity_factor 1.25, random bf16 weights) through
+               ``make_prefill_step`` on B 2 x S 4096: 28 flash launches,
+               dropped pairs per layer and the aux loss, under the
+               routing rule (ROUTING_MARGIN, FLOOR_FACTOR): the routing
+               shares of the kernel and plain runs beside the floor of
+               two plain formulations, the logits where the routing
+               agreed and on a plain run forced onto the kernel run's
+               experts, beside their floors;
+ 16. moe-serve — the same weights in ``ServingEngine`` (4 slots,
+               max_len 256, 16-token pages, cost policy, 6 requests of a
+               64-token shared prompt + 32 own, 8 new each): every
+               prompt-replay step runs all 4 lanes (counted), the paged
+               kernel once a layer and call; a plain engine replays the
+               run teacher-forced and forced onto its routing (logits at
+               every call, EngineStats), a floor engine the first
+               FLOOR_CALLS calls with the reference's rounding of decode
+               attention; each token the plain argmax would change is
+               printed with its call's routing flips;
+ 17. replay[flash MHA] — flash forward and backward at deepseek's
+               multi-head shape (B 2, S 4096, 16 / 16 heads of 128)
+               beside SDPA;
+ 18. moe-train — deepseek-moe-16b at full width and 4 of 28 layers on
+               B 1 x S 4096 from the token pipeline: first-step
+               gradients against the plain step on the kernel run's
+               routing beside a floor, routing shares, two kernel steps
+               equal bit for bit, remat's recompute routing as its
+               forward, then 1 + 3 timed steps (launches, tokens/s, MFU
+               over active parameters, aux losses, peak memory);
+ 19. ssm     — xlstm-125m at full size: the mLSTM's chunkwise and
+               sequential forms' gradients on fp32 weights, 1 + 2 timed
+               bf16 steps at B 2 x S 2048, one profiled step (the sLSTM
+               recurrences' share of device time), the engine (4 slots,
+               4 requests of 64 + 8 tokens), decode against the forward;
+ 20. jamba   — Jamba reduced to 8 layers (d_model 512, 7 Mamba + 1
+               attention, MoE every other layer, capacity_factor 1.25):
+               prefill on B 2 x S 4096 and the engine, each as in 15 and
+               16.
+
+``--phases`` runs some groups of these (join: 2-6, attn: 7-10, train:
+11-14, moe: 15-18, ssm: 19, jamba: 20; the build and device lines
+always); the default is all of them.
 
 Prints the kernels' JSON record and the card's name and power limit on
 the two lines before the last, and ``{"ok": true, "device": ...}`` last.
@@ -116,6 +159,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -152,9 +196,11 @@ from repro_torch.kernels.paged_attention.ref import \
     paged_attention_ref  # noqa: E402
 from repro_torch.launch.serve import synth_requests  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
-from repro_torch.models.model import (decode_step,  # noqa: E402
+from repro_torch.models import moe as model_moe  # noqa: E402
+from repro_torch.models import ssm as model_ssm  # noqa: E402
+from repro_torch.models.model import (decode_step, forward,  # noqa: E402
                                       init_decode_state, init_params)
-from repro_torch.serve.engine import ServingEngine  # noqa: E402
+from repro_torch.serve.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serve.serve_step import make_prefill_step  # noqa: E402
 from repro_torch.train.checkpoint import (AsyncCheckpointer,  # noqa: E402
                                           latest_checkpoint,
@@ -165,6 +211,8 @@ from repro_torch.train.train_step import (  # noqa: E402
     loss_fn, make_train_step, reference_decay_mask, value_and_grad)
 from repro_torch.train.tree import leaves, named_leaves, tree_map  # noqa: E402
 
+# The phases in groups, in the order they run; ``--phases`` picks some.
+PHASE_GROUPS = ("join", "attn", "train", "moe", "ssm", "jamba")
 N_NODES = 8
 KERNEL_SRC = "src/repro_torch/kernels/simjoin/simjoin.cu"
 SOURCES = {
@@ -208,7 +256,9 @@ EARLIER = {"flash_attention_fwd": "8.4915 ms before the redesign (fp32 on "
 ARCH = "llama3.2-3b"
 PREFILL_B, PREFILL_S = 2, 4096
 SERVE = dict(slots=4, max_len=512, page_size=16, policy="cost")
-SERVE_REQUESTS, SYS_LEN, USER_LEN, NEW_TOKENS = 8, 192, 64, 16
+# 4 requests (cut from 8 to keep the script inside its time limit with
+# the MoE and SSM phases).
+SERVE_REQUESTS, SYS_LEN, USER_LEN, NEW_TOKENS = 4, 192, 64, 16
 # The prompt-replay call whose paged inputs are kept (slot 0's first
 # prompt, the last position of the re-run replay window 128-159).
 REPLAY_PROBE_POS = (SYS_LEN + USER_LEN) // 2 + 31
@@ -793,9 +843,11 @@ def device_activity(prof):
     """What the card did during a profiled window: (busy seconds, the
     number of device events, device seconds by event name). Busy time is
     the union of the device activity intervals the profiler recorded
-    (kernels, copies, sets); None when it recorded none."""
+    (kernels, copies, sets; not the device-side copies of
+    ``record_function`` ranges); None when it recorded none."""
     events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
@@ -1126,49 +1178,6 @@ class StepRecorder:
         return logits, state
 
 
-class PlainReplay:
-    """Stands in for a plain-version engine's decode step: runs it, holds
-    its logits against the kernel run's for the same call, and hands the
-    engine the kernel run's logits, so the plain engine follows the
-    recorded tokens (teacher forcing)."""
-
-    def __init__(self, engine, calls):
-        self.calls = calls
-        self.n = 0
-        self.max_err = 0.0
-        self.max_rel = 0.0
-        self.flips = 0
-        self.slot = None
-        self._decode = engine._decode
-        self._prefill = engine._prefill_into_slot
-        engine._decode = self
-        engine._prefill_into_slot = self.prefill
-
-    def prefill(self, state, slot, tokens, start):
-        """Tag the replay steps of one admission with their slot."""
-        self.slot = slot
-        try:
-            return self._prefill(state, slot, tokens, start)
-        finally:
-            self.slot = None
-
-    def __call__(self, params, tokens, state, pos):
-        """One plain step, compared with the recorded kernel step."""
-        slot, rtok, rpos, rlogits = self.calls[self.n]
-        if slot != self.slot or not torch.equal(tokens, rtok) or \
-                not torch.equal(pos, rpos):
-            raise AssertionError(f"plain replay diverged at call {self.n}")
-        logits, state = self._decode(params, tokens, state, pos)
-        err, rel = close_logits(rlogits, logits[:, -1],
-                                f"serving logits, call {self.n}")
-        self.max_err = max(self.max_err, err)
-        self.max_rel = max(self.max_rel, rel)
-        self.flips += int((rlogits.argmax(-1)
-                           != logits[:, -1].argmax(-1)).sum())
-        self.n += 1
-        return rlogits[:, None, :], state
-
-
 def step_window(params, cfg, dev, window):
     """Re-run recorded decode_step calls on a zeroed state of the
     engine's shape (the step's work depends on the positions, not on the
@@ -1271,7 +1280,7 @@ def phase_serve(params, cfg, dev):
             f"[{label}]")
 
     plain = ServingEngine(cfg, params, device=dev, impl="plain", **SERVE)
-    replay = PlainReplay(plain, calls)
+    replay = RoutedReplay(plain, calls)
     reqs2 = synth_requests(SERVE_REQUESTS, cfg.vocab_size, seed=0,
                            sys_len=SYS_LEN, user_len=USER_LEN)
     for r in reqs2:
@@ -1290,8 +1299,11 @@ def phase_serve(params, cfg, dev):
         f"{time.perf_counter() - t0:.3f} s: logits max_abs_err "
         f"{replay.max_err}, relative L2 err at most {replay.max_rel} "
         f"(bounds {MODEL_MAX_ABS}, {MODEL_REL_L2}); the plain argmax "
-        f"differs in {replay.flips} of the {sum(c[1].shape[0] for c in calls)}"
+        f"differs in {sum(len(lanes) for _, lanes in replay.token_diffs)} "
+        f"of the {sum(c[1].shape[0] for c in calls)}"
         f" lanes; EngineStats equal")
+    hold((replay.max_err, replay.max_rel), (MODEL_MAX_ABS, MODEL_REL_L2),
+         "serving logits")
     kept = {"replay": probes["replay"][0],
             "batched": max(probes["batched"],
                            key=lambda args: int(args[4].sum()))}
@@ -1568,17 +1580,17 @@ def phase_train_kernels(dev):
     return err
 
 
-def train_pipeline(root, vocab, seed):
+def train_pipeline(root, vocab, seed, batch=TRAIN_B, seq=TRAIN_S):
     """The raw-array token pipeline of the train phase: a corpus of
     documents up to S + 1 tokens from ``seed`` in HDF5 files over 4
     hosts, batches of B x S under the cost policy."""
-    files, _ = make_token_corpus(TRAIN_SAMPLES, TRAIN_S + 1, vocab,
+    files, _ = make_token_corpus(TRAIN_SAMPLES, seq + 1, vocab,
                                  TRAIN_FILES, seed)
     catalog, data = build_catalog(files, str(root), "hdf5", TRAIN_HOSTS)
     return RawArrayTokenPipeline(catalog, FileReader(catalog, data),
                                  n_hosts=TRAIN_HOSTS,
                                  host_budget_bytes=TRAIN_HOST_BUDGET,
-                                 batch=TRAIN_B, seq=TRAIN_S, policy="cost")
+                                 batch=batch, seq=seq, policy="cost")
 
 
 def on_card(batch, dev):
@@ -1871,6 +1883,899 @@ def phase_resume(dev, root, seed):
         f"final parameters equal bit for bit")
 
 
+# -------------------------------------------------- MoE and SSM slice
+
+# deepseek-moe-16b as the repo configures it (28 layers, d_model 2048, 16
+# / 16 heads of 128, 64 routed experts of 1408 top-6 plus 2 shared,
+# capacity_factor 1.25, vocab 102400): prefill and serving at full width
+# and depth, training at full width and MOE_TRAIN_LAYERS layers (the 28
+# do not fit one card with their gradients and fp32 moments).
+MOE_ARCH = "deepseek-moe-16b"
+MOE_SERVE = dict(slots=4, max_len=256, page_size=16, policy="cost")
+MOE_REQUESTS, MOE_SYS_LEN, MOE_USER_LEN, MOE_NEW_TOKENS = 6, 64, 32, 8
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_STEPS = 4, 1, 3
+# xlstm-125m at full size: training at B x S (mLSTM goes chunkwise), then
+# the engine.
+SSM_ARCH = "xlstm-125m"
+SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS = 2, 2048, 2
+# The profiled step's length: reading a trace of the S 2048 step (about
+# 1.4 M events, most of them the sLSTM time loop's) would take minutes;
+# every part of the step is linear in S, so the loop's share is not.
+# The mLSTM forms are compared at the shortest S that "auto" runs
+# chunkwise: the sequential form's gradient at S 2048 takes 96 s
+# (measured on one H100).
+SSM_PROFILE_S = SSM_CHECK_S = 128
+# Decode against the forward on fp32 weights (the step's bf16 GEMMs
+# differ in shape between the two, and a bf16 logit moves by up to 0.26
+# of its 1.5e1 range over 14.5 M logits, measured on one H100): max abs and
+# relative L2 bounds.
+SSM_FP32_BOUNDS = (1e-2, 1e-3)
+SSM_SERVE = dict(slots=4, max_len=128, page_size=16, policy="cost")
+SSM_REQUESTS, SSM_PROMPT, SSM_NEW_TOKENS = 4, 64, 8
+# Jamba reduced (8 layers: 7 Mamba + 1 attention, MoE every other layer,
+# d_model 512, 4 / 1 heads of 128, vocab 512) with its published
+# capacity_factor 1.25 put back.
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA = dict(d_model=512, n_periods=1, vocab=512)
+JAMBA_SERVE = dict(slots=4, max_len=128, page_size=16, policy="cost")
+JAMBA_REQUESTS, JAMBA_SYS_LEN, JAMBA_USER_LEN, JAMBA_NEW_TOKENS = \
+    4, 48, 16, 8
+# The routing rule of the MoE phases. A last-bit difference in attention
+# can flip a top-k choice or move a token across the capacity cut, and
+# every later token of that expert's queue shifts with it. Each phase
+# prints the share of (position, layer) routings equal between the kernel
+# run and the plain run, and beside it the share between two plain
+# formulations (the floor); the kernel run's share may trail the floor's
+# by at most ROUTING_MARGIN. The logits are held to the model bounds at
+# the positions whose routing agreed in every layer, and, everywhere, in
+# a plain run forced onto the kernel run's expert choices (its gates,
+# aux loss and gradients its own).
+ROUTING_MARGIN = 0.01
+# The serving floor's engine replays the first FLOOR_CALLS decode_step
+# calls of the kernel run (the whole run is replayed by the plain one).
+FLOOR_CALLS = 200
+# The routed models' logits and gradients against a floor: deepseek's
+# 28 bf16 layers carry more rounding than llama's, so two plain
+# formulations of the same step, on the same routing, are themselves
+# farther apart than llama's bounds allow (relative L2 0.0404 against
+# 0.03 in a prefill, measured on one H100). Each routed phase computes that
+# floor and holds the kernel run to the larger of llama's bound and
+# FLOOR_FACTOR x the floor (llama's bounds sit about 1.5 x above its own
+# floor: 0.03 against 0.0195).
+FLOOR_FACTOR = 1.5
+
+
+def floor_bounds(floor):
+    """(max abs, relative L2) bounds of a routed phase's logits given the
+    floor's (max abs, relative L2)."""
+    return (max(MODEL_MAX_ABS, FLOOR_FACTOR * floor[0]),
+            max(MODEL_REL_L2, FLOOR_FACTOR * floor[1]))
+
+
+def hold(errors, bounds, what):
+    """Raise unless both (max abs, relative L2) errors are within
+    ``bounds``."""
+    if not (errors[0] <= bounds[0] and errors[1] <= bounds[1]):
+        raise AssertionError(f"{what}: errors {errors} beyond {bounds}")
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, logging its seconds under ``name``."""
+    t = time.perf_counter()
+    out = fn(*args)
+    log(f"{name}: {time.perf_counter() - t:.2f} s")
+    return out
+
+
+def routing_signature(r):
+    """(T, K) kept expert ids sorted, -1 for a dropped pair: two runs
+    dispatch a token alike when these rows are equal."""
+    return torch.where(r.keep, r.experts, -1).sort(-1).values
+
+
+class RoutingRecorder:
+    """Stands in for ``repro_torch.models.moe.route`` over one run:
+    records each MoE layer's routing under (``call``, the router's
+    address), and, given a ``forced`` recorder of another run, routes to
+    that run's experts instead (``moe.assign`` on this run's own router
+    probabilities, so gates, aux loss and gradients are its own). A
+    layer recomputed under remat routes again; ``recomputed`` keeps
+    those signatures to be checked against the first."""
+
+    def __init__(self, forced=None):
+        self.forced = forced
+        self.call = 0
+        self.sig, self.experts, self.aux, self.drops = {}, {}, {}, {}
+        self.recomputed = []
+
+    def __enter__(self):
+        self._route = model_moe.route
+        model_moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        model_moe.route = self._route
+
+    def __call__(self, router, xt, cfg):
+        r = self._route(router, xt, cfg)
+        key = (self.call, router.data_ptr())
+        sig = routing_signature(r)
+        if key in self.sig:
+            self.recomputed.append((key, sig))
+        else:
+            self.sig[key], self.experts[key] = sig, r.experts
+            self.aux[key] = r.aux.detach()
+            self.drops[key] = (~r.keep).sum()
+        if self.forced is None:
+            return r
+        probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+        return model_moe.assign(probs, self.forced.experts[key], cfg)
+
+    def recompute_equal(self) -> bool:
+        """Every remat recompute routed as the first pass did."""
+        return all(torch.equal(self.sig[k], s) for k, s in self.recomputed)
+
+    def layer_values(self, table):
+        """A recorded per-layer table (aux, drops) of call 0, in layer
+        order, as floats."""
+        return [float(v) for (c, _), v in table.items() if c == 0]
+
+
+def agreement(a, b):
+    """(share of (token, layer) routings equal in the runs ``a`` and
+    ``b``, {key: (T,) bool equal}) over the keys both recorded."""
+    keys = [k for k in a.sig if k in b.sig]
+    same = {k: (a.sig[k] == b.sig[k]).all(-1) for k in keys}
+    flat = torch.cat([same[k] for k in keys])
+    return float(flat.float().mean()), same
+
+
+def routing_check(tag, share, floor_share):
+    """The routing rule's share check: the kernel run's share may trail
+    the floor's by at most ROUTING_MARGIN."""
+    if share < floor_share - ROUTING_MARGIN:
+        raise AssertionError(
+            f"{tag}: kernel run routes {share:.6f} of (position, layer) "
+            f"pairs as the plain run, below the floor {floor_share:.6f} "
+            f"less {ROUTING_MARGIN}")
+
+
+def routed_prefill(params, cfg, dev, tag, seed):
+    """``make_prefill_step`` at B 2 x S 4096 through the flash kernel
+    under the routing rule: the plain step's own routing and, at the rows
+    whose last position routed alike in every layer, its logits; the
+    floor (naive against blockwise plain attention); the plain step forced
+    onto the kernel run's experts, all rows. Returns the flash
+    launches."""
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        PREFILL_B, PREFILL_S))).to(dev)
+    step = make_prefill_step(cfg)
+    step(params, tokens=tokens[:, :256])        # warm up (short)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_attn = sum(1 for m, _ in cfg.layer_pattern if m == "attn") * \
+        cfg.n_periods
+    zero_launches()
+    with RoutingRecorder() as rk:
+        t0 = time.perf_counter()
+        got = step(params, tokens=tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = flash.LAUNCHES["flash_attention_fwd"]
+    peak = torch.cuda.max_memory_allocated()
+    if launches != n_attn or paged.LAUNCHES["paged_attention"]:
+        raise AssertionError(f"{tag}: flash launched {launches} times (want "
+                             f"{n_attn}), paged "
+                             f"{paged.LAUNCHES['paged_attention']}")
+    _, pwall, activity = profiled(lambda: step(params, tokens=tokens))
+    label = card_label()
+    drops = rk.layer_values(rk.drops)
+    aux = rk.layer_values(rk.aux)
+    T = PREFILL_B * PREFILL_S
+    log(f"{tag}: {cfg.name} B={PREFILL_B} S={PREFILL_S}: wall {wall:.6f} "
+        f"s, flash launches {launches}, max_memory_allocated {peak} bytes "
+        f"[{label}]")
+    log(f"{tag}: {share(activity, wall, pwall)}; "
+        f"{kernel_time(activity, 'flash_fwd_bf16_kernel')} [{label}]")
+    log(f"{tag}: dropped (token, k) pairs per MoE layer (of "
+        f"{T * cfg.moe.top_k}, capacity "
+        f"{max(1, int(cfg.moe.capacity_factor * cfg.moe.top_k * T / cfg.moe.n_experts))}"
+        f" a expert): {[int(d) for d in drops]}; aux loss {sum(aux):.6f} "
+        f"(per layer {[round(a, 4) for a in aux]})")
+
+    plain = make_prefill_step(cfg, impl="plain")
+    naive = make_prefill_step(cfg, attention_impl="naive", impl="plain")
+    with RoutingRecorder() as rp:
+        want = plain(params, tokens=tokens)
+    with RoutingRecorder() as rn:
+        naive_own = naive(params, tokens=tokens)
+    with RoutingRecorder(forced=rk):
+        forced = plain(params, tokens=tokens)
+    with RoutingRecorder(forced=rk):
+        naive_forced = naive(params, tokens=tokens)
+    torch.cuda.synchronize()
+    share_k, same_k = agreement(rk, rp)
+    share_f, _ = agreement(rn, rp)
+    # The last position of each row, held where it routed alike in every
+    # layer.
+    last = torch.stack([s.view(PREFILL_B, PREFILL_S)[:, -1]
+                        for s in same_k.values()]).all(0)
+    held = [int(i) for i in torch.nonzero(last).flatten()]
+    own = logit_errors(got[held], want[held]) if held else None
+    forced_err = logit_errors(got, forced)
+    floor = logit_errors(naive_forced, forced)
+    own_floor = logit_errors(naive_own, want)
+    bounds = floor_bounds(floor)
+    log(f"{tag}[plain]: routings equal to the plain run's {share_k:.6f} of "
+        f"(position, layer) pairs, floor (naive vs blockwise plain) "
+        f"{share_f:.6f}, margin {ROUTING_MARGIN}; logits (max_abs_err, "
+        f"relative L2 err) at the rows whose last position routed alike in "
+        f"every layer {held}: {own} (floor, each on its own routing: "
+        f"{own_floor}); on the kernel run's routing, all {PREFILL_B} rows: "
+        f"{forced_err} (floor, both on that routing: {floor}); bounds "
+        f"{bounds} (the larger of {MODEL_MAX_ABS}, {MODEL_REL_L2} and "
+        f"{FLOOR_FACTOR} x the floor)")
+    routing_check(tag, share_k, share_f)
+    if held:
+        hold(own, floor_bounds(own_floor), f"{tag} logits, rows {held}")
+    hold(forced_err, bounds, f"{tag} logits on the kernel run's routing")
+    return launches
+
+
+def reference_rounding_attention(q, kp, vp, table, sl, impl="plain"):
+    """The floor's second plain formulation of decode attention: the
+    reference's decode arithmetic (scores from the bf16 product, fp32
+    softmax, probabilities rounded to bf16 before the value product) on
+    the dense view of the pages."""
+    b, h, d = q.shape
+    _, ps, hk, _ = kp.shape
+    n = table.shape[1] * ps
+    idx = table.long()
+    k = kp[idx].reshape(b, n, hk, d).repeat_interleave(h // hk, dim=2)
+    v = vp[idx].reshape(b, n, hk, d).repeat_interleave(h // hk, dim=2)
+    s = torch.einsum("bhd,bshd->bhs", q, k).float() / math.sqrt(d)
+    live = torch.arange(n, device=q.device)[None, None, :] < sl[:, None, None]
+    p = torch.softmax(torch.where(live, s, -1e30), dim=-1).to(q.dtype)
+    return torch.einsum("bhs,bshd->bhd", p, v)
+
+
+class RoutedRecorder(StepRecorder):
+    """``StepRecorder`` that also numbers each decode_step call for a
+    ``RoutingRecorder``."""
+
+    def __init__(self, engine, router):
+        super().__init__(engine)
+        self.router = router
+
+    def __call__(self, params, tokens, state, pos):
+        self.router.call = len(self.calls)
+        return super().__call__(params, tokens, state, pos)
+
+
+class ReplayDone(Exception):
+    """A ``RoutedReplay`` has replayed the calls it was asked to."""
+
+
+class RoutedReplay:
+    """Stands in for a plain-version engine's decode step, teacher-forced
+    on a kernel run's calls: runs the step, keeps its logits, the largest
+    errors against the kernel run's and the calls whose argmax differs
+    from the kernel run's token, and hands the engine the kernel run's
+    logits, so it follows the recorded tokens. A ``router`` (the forced
+    ``RoutingRecorder`` of a routed model) is told each call's number.
+    Raises ``ReplayDone`` before call ``stop``."""
+
+    def __init__(self, engine, calls, router=None, stop=None):
+        self.calls, self.router = calls, router
+        self.stop = len(calls) if stop is None else stop
+        self.n, self.max_err, self.max_rel = 0, 0.0, 0.0
+        self.logits = []
+        self.token_diffs = []
+        self.slot = None
+        self._decode = engine._decode
+        self._prefill = engine._prefill_into_slot
+        engine._decode = self
+        engine._prefill_into_slot = self.prefill
+
+    def prefill(self, state, slot, tokens, start):
+        """Tag the replay steps of one admission with their slot."""
+        self.slot = slot
+        try:
+            return self._prefill(state, slot, tokens, start)
+        finally:
+            self.slot = None
+
+    def __call__(self, params, tokens, state, pos):
+        """One plain step, compared with the recorded kernel step."""
+        if self.n == self.stop:
+            raise ReplayDone
+        slot, rtok, rpos, rlogits = self.calls[self.n]
+        if slot != self.slot or not torch.equal(tokens, rtok) or \
+                not torch.equal(pos, rpos):
+            raise AssertionError(f"plain replay diverged at call {self.n}")
+        if self.router is not None:
+            self.router.call = self.n
+        logits, state = self._decode(params, tokens, state, pos)
+        self.logits.append(logits[:, -1])
+        err, rel = logit_errors(rlogits, logits[:, -1])
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"serving logits, call {self.n}: not "
+                                 f"finite")
+        self.max_err, self.max_rel = max(self.max_err, err), \
+            max(self.max_rel, rel)
+        diff = rlogits.argmax(-1) != logits[:, -1].argmax(-1)
+        if bool(diff.any()):
+            self.token_diffs.append((self.n, diff.nonzero().flatten()
+                                     .tolist()))
+        self.n += 1
+        return rlogits[:, None, :], state
+
+
+def routed_serve(params, cfg, dev, tag, serve_kw, n_req, sys_len, user_len,
+                 new_tokens):
+    """``ServingEngine`` through the paged kernel under the routing rule:
+    every prompt-replay step must run all lanes; a plain engine replays
+    the run teacher-forced and forced onto its routing (logits held to
+    the bounds at every call, EngineStats equal), recording its own
+    routing; a third engine does the same with the reference's rounding
+    of decode attention, for the floor. Returns the paged launches."""
+    def requests():
+        reqs = synth_requests(n_req, cfg.vocab_size, seed=0,
+                              sys_len=sys_len, user_len=user_len)
+        for r in reqs:
+            r.max_new_tokens = new_tokens
+        return reqs
+
+    n_attn = sum(1 for m, _ in cfg.layer_pattern if m == "attn") * \
+        cfg.n_periods
+    engine = ServingEngine(cfg, params, device=dev, **serve_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with RoutingRecorder() as rk:
+        recorder = RoutedRecorder(engine, rk)
+        t0 = time.perf_counter()
+        done = engine.run(requests())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = paged.LAUNCHES["paged_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    calls = recorder.calls
+    n_calls = len(calls)
+    replay = [c for c in calls if c[0] is not None]
+    lanes = {c[1].shape[0] for c in replay}
+    if launches != n_attn * n_calls or \
+            flash.LAUNCHES["flash_attention_fwd"] or \
+            lanes != {serve_kw["slots"]} or \
+            len(replay) != n_req * (sys_len + user_len):
+        raise AssertionError(
+            f"{tag}: paged launched {launches} times for {n_calls} calls "
+            f"(want {n_attn} a call), flash "
+            f"{flash.LAUNCHES['flash_attention_fwd']}; {len(replay)} "
+            f"prompt-replay steps on {lanes} lanes")
+    st = engine.stats
+    generated = sum(len(r.generated) for r in done)
+    if len(done) != n_req or generated != n_req * new_tokens:
+        raise AssertionError(f"{tag}: served {len(done)} requests, "
+                             f"{generated} tokens")
+    label = card_label()
+    drops = sum(int(d) for d in rk.drops.values())
+    pairs = sum(int(s.numel()) for s in rk.sig.values())
+    log(f"{tag}: {cfg.name} {serve_kw}, {n_req} requests of {sys_len} shared"
+        f" + {user_len} own prompt tokens, {new_tokens} new each: "
+        f"{dataclasses.asdict(st)}")
+    log(f"{tag}: engine.run {wall:.6f} s wall, {generated} tokens = "
+        f"{generated / wall:.3f} generated tokens/s; {n_calls} decode_step "
+        f"calls = {1e3 * wall / n_calls:.4f} ms per call; {len(replay)} "
+        f"prompt-replay steps, every one on all {serve_kw['slots']} lanes; "
+        f"paged launches {launches}; dropped {drops} of {pairs} routed "
+        f"(token, k) pairs; max_memory_allocated {peak} bytes [{label}]")
+
+    runs = {}
+    for name, attention, stop in (
+            ("plain", None, n_calls),
+            ("floor", reference_rounding_attention, min(FLOOR_CALLS,
+                                                         n_calls))):
+        inner = model_attention.paged_decode_attention
+        if attention is not None:
+            model_attention.paged_decode_attention = attention
+        try:
+            plain = ServingEngine(cfg, params, device=dev, impl="plain",
+                                  **serve_kw)
+            with RoutingRecorder(forced=rk) as rr:
+                replayer = RoutedReplay(plain, calls, rr, stop)
+                try:
+                    done2 = plain.run(requests())
+                except ReplayDone:
+                    done2 = None
+                torch.cuda.synchronize()
+        finally:
+            model_attention.paged_decode_attention = inner
+        if replayer.n != stop or (done2 is not None and (
+                dataclasses.asdict(plain.stats) != dataclasses.asdict(st)
+                or [r.generated for r in done2] !=
+                [r.generated for r in done])):
+            raise AssertionError(f"{tag}[{name}]: replay made {replayer.n} "
+                                 f"of {stop} calls, stats {plain.stats}")
+        runs[name] = (rr, replayer)
+    rp, plain_replay = runs["plain"]
+    floor_replay = runs["floor"][1]
+    share_k, same_k = agreement(rk, rp)
+    share_f, _ = agreement(runs["floor"][0], rp)
+    floor_err = max(logit_errors(a, b)[0] for a, b in
+                    zip(floor_replay.logits, plain_replay.logits))
+    floor_rel = max(logit_errors(a, b)[1] for a, b in
+                    zip(floor_replay.logits, plain_replay.logits))
+    # Each argmax difference, with the routing flips of its call.
+    layers = {}
+    for c, ptr in rk.sig:
+        layers.setdefault(ptr, len(layers))
+    flips = []
+    for n, diff_lanes in plain_replay.token_diffs:
+        where = [(layers[ptr], lane) for (c, ptr), s in same_k.items()
+                 if c == n for lane in range(s.numel()) if not bool(s[lane])]
+        flips.append(f"call {n} lanes {diff_lanes}: routing flips (layer, "
+                     f"lane) {where or 'none (a near-tie of the logits)'}")
+    bounds = floor_bounds((floor_err, floor_rel))
+    log(f"{tag}[plain]: teacher-forced replay of all {n_calls} calls on the "
+        f"kernel run's routing: logits max_abs_err {plain_replay.max_err}, "
+        f"relative L2 err at most {plain_replay.max_rel} (floor, the "
+        f"reference's rounding of decode attention against the plain "
+        f"version, both on that routing, first {floor_replay.n} calls: "
+        f"{floor_err}, {floor_rel}; bounds "
+        f"{bounds}, the larger of {MODEL_MAX_ABS}, {MODEL_REL_L2} and "
+        f"{FLOOR_FACTOR} x the floor); EngineStats equal; routings equal to "
+        f"the plain run's {share_k:.6f} of (position, layer) pairs, floor "
+        f"{share_f:.6f}, margin {ROUTING_MARGIN}; the plain argmax differs "
+        f"from the served token in {len(flips)} calls"
+        + ("" if not flips else ": " + "; ".join(flips[:8])))
+    routing_check(tag, share_k, share_f)
+    hold((plain_replay.max_err, plain_replay.max_rel), bounds,
+         f"{tag} serving logits")
+    return launches
+
+
+def replay_flash_mha(dev, cfg):
+    """The flash forward and backward at deepseek's multi-head shape (B
+    2, S 4096, 16 / 16 heads of 128, causal, bf16): kernel and SDPA
+    times (the backward in a CUDA graph, beside SDPA's backward)."""
+    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    rng = np.random.default_rng(18)
+    q = randn(rng, (PREFILL_B, h, PREFILL_S, hd), torch.bfloat16, dev)
+    k = randn(rng, (PREFILL_B, h, PREFILL_S, hd), torch.bfloat16, dev)
+    v = randn(rng, (PREFILL_B, h, PREFILL_S, hd), torch.bfloat16, dev)
+    got = flash.flash_attention_fwd(q, k, v, causal=True)
+    close(got, attention_ref(q, k, v, causal=True), 2e-2, 2e-2,
+          "flash at the MHA shape")
+    fwd_ms = cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True))
+    fwd_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    del q, k, v, got
+    err, (q, k, v, out, lse, dout) = bwd_case(
+        rng, dev, PREFILL_B, PREFILL_S, PREFILL_S, h, h, hd, torch.bfloat16,
+        True)
+    bwd_ms = graph_ms(lambda: flash.flash_attention_bwd(q, k, v, out, lse,
+                                                        dout), n=10)
+    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True)
+    bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+        sdpa, (qs, ks, vs), dout, retain_graph=True))
+    live = PREFILL_B * h * PREFILL_S * (PREFILL_S + 1) // 2
+    log(f"replay[flash MHA]: q/k/v (B {PREFILL_B}, H {h}, S {PREFILL_S}, D "
+        f"{hd}) bf16 causal: forward {fwd_ms:.4f} ms = "
+        f"{4 * hd * live / fwd_ms / 1e9:.1f} TFLOP/s, {fwd_ms / fwd_lib:.3f}"
+        f" x sdpa ({fwd_lib:.4f} ms); backward {bwd_ms:.4f} ms in a CUDA "
+        f"graph = {8 * hd * live / bwd_ms / 1e9:.1f} TFLOP/s, "
+        f"{bwd_ms / bwd_lib:.3f} x sdpa backward ({bwd_lib:.4f} ms), "
+        f"max_abs_err {err} [{card_label()}]")
+    return dict(mha_fwd_ms=fwd_ms, mha_fwd_library_ms=fwd_lib,
+                mha_bwd_graph_ms=bwd_ms, mha_bwd_library_ms=bwd_lib)
+
+
+def active_params(params, cfg):
+    """Parameters a token uses: all but the routed experts it is not
+    sent to ((E - K) / E of every expert stack)."""
+    n = sum(t.numel() for t in leaves(params))
+    mc = cfg.moe
+    for layer in params["layers"]:
+        for name in ("w_in", "w_gate", "w_out"):
+            if name in layer.get("mlp", {}) and "router" in layer["mlp"]:
+                n -= layer["mlp"][name].numel() * (mc.n_experts - mc.top_k) \
+                    // mc.n_experts
+    return n
+
+
+def train_grads(params, cfg, batch, router, impl="kernel"):
+    """(metrics, gradients, seconds) of one batch under ``router``."""
+    lfn = functools.partial(loss_fn, cfg=cfg, remat=True, impl=impl)
+    with router:
+        t = time.perf_counter()
+        metrics, g = value_and_grad(params, lfn, batch)
+        torch.cuda.synchronize()
+    return metrics, g, time.perf_counter() - t
+
+
+def grad_errors(names, got, want):
+    """(loss relative error, grad-norm relative error, worst leaf's
+    relative L2 error, log fragment) of two (metrics, gradients) pairs."""
+    (mg, gg), (mw, gw) = got, want
+    err, leaf, norm_g, norm_w = compare_grads(names, gg, gw)
+    loss_g, loss_w = float(mg["loss"]), float(mw["loss"])
+    loss_rel = abs(loss_g - loss_w) / abs(loss_w)
+    norm_rel = abs(norm_g - norm_w) / norm_w
+    if not np.isfinite(loss_g):
+        loss_rel = float("inf")
+    return (loss_rel, norm_rel, err,
+            f"loss {loss_g} vs {loss_w} (relative {loss_rel}), grad norm "
+            f"{norm_g} vs {norm_w} (relative {norm_rel}), worst leaf {leaf} "
+            f"relative L2 {err}")
+
+
+TRAIN_BOUNDS = (TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_LEAF_REL_L2)
+
+
+def timed_steps(tag, cfg, params, pipeline, dev, steps, opt_cfg,
+                remat=True):
+    """One warm-up step and ``steps`` timed steps of ``make_train_step``,
+    the launch counts set to 0 before the timed ones: (losses, aux
+    losses, step walls, launches, peak memory, opt state, step)."""
+    opt_state = adamw_init(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, remat=remat)
+    params, opt_state, _ = step(params, opt_state,
+                                on_card(pipeline.next_batch(), dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    losses, auxes, walls = [], [], []
+    for _ in range(steps):
+        batch = on_card(pipeline.next_batch(), dev)
+        t = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))   # synchronizes
+        walls.append(time.perf_counter() - t)
+        auxes.append(float(metrics["aux_loss"]))
+    launches = {name: flash.LAUNCHES[name] for name in flash.LAUNCHES}
+    if not all(np.isfinite(losses)) or paged.LAUNCHES["paged_attention"]:
+        raise AssertionError(f"{tag}: losses {losses}, paged "
+                             f"{paged.LAUNCHES['paged_attention']}")
+    return (losses, auxes, walls, launches, torch.cuda.max_memory_allocated(),
+            opt_state, step)
+
+
+def phase_moe_train(dev, root, seed):
+    """deepseek-moe-16b at full width and MOE_TRAIN_LAYERS layers trained
+    from the raw-array pipeline at B 1 x S 4096: the first step's
+    gradients against the plain step's on the kernel run's routing, the
+    routing rule's shares (floor: naive against blockwise plain
+    attention), the kernel step run twice for bit equality, then timed
+    steps. Returns the flash launches of the timed steps."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    label = card_label()
+    pipeline = train_pipeline(root, cfg.vocab_size, seed, batch=MOE_TRAIN_B)
+    params = init_params(cfg, seed=seed, device=dev)
+    names = [n for n, _ in named_leaves(params)]
+    n_params = sum(t.numel() for t in leaves(params))
+    n_active = active_params(params, cfg)
+    batch = on_card(pipeline.next_batch(), dev)
+
+    rk = RoutingRecorder()
+    mk, g_k, wall_k = train_grads(params, cfg, batch, rk)
+    mk2, g_k2, _ = train_grads(params, cfg, batch, RoutingRecorder())
+    bit_equal = float(mk["loss"]) == float(mk2["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(g_k, g_k2))
+    del g_k2
+    mf, g_f, wall_f = train_grads(params, cfg, batch,
+                                  RoutingRecorder(forced=rk), impl="plain")
+    *errs, msg = grad_errors(names, (mk, g_k), (mf, g_f))
+    del g_k
+    # The floor: the plain step with autograd through attention_ref
+    # against the plain step (attention_bwd_ref), both on the kernel
+    # run's routing.
+    saved = model_attention.flash_attention
+    model_attention.flash_attention = autograd_attention_ref
+    try:
+        ma, g_a, _ = train_grads(params, cfg, batch,
+                                 RoutingRecorder(forced=rk), impl="plain")
+    finally:
+        model_attention.flash_attention = saved
+    *floor, floor_msg = grad_errors(names, (ma, g_a), (mf, g_f))
+    del g_a, g_f
+    bounds = tuple(max(b, FLOOR_FACTOR * f) for b, f in zip(TRAIN_BOUNDS,
+                                                            floor))
+    with torch.no_grad():
+        with RoutingRecorder() as rp:
+            forward(params, cfg, tokens=batch["tokens"], impl="plain")
+        with RoutingRecorder() as rn:
+            forward(params, cfg, tokens=batch["tokens"], impl="plain",
+                    attention_impl="naive")
+    share_k, _ = agreement(rk, rp)
+    share_f, _ = agreement(rn, rp)
+    log(f"moe-train[plain]: first step's gradients of all {len(names)} "
+        f"leaves ({n_params} parameters, {n_active} active a token) from "
+        f"one batch, kernel step vs plain step on its routing: {msg}; floor "
+        f"(autograd through attention_ref vs attention_bwd_ref, same "
+        f"routing): {floor_msg}; bounds (loss, grad norm, leaf) {bounds}, "
+        f"the larger of {TRAIN_BOUNDS} and {FLOOR_FACTOR} x the floor; "
+        f"routings equal to "
+        f"the plain forward's {share_k:.6f} of (position, layer) pairs, "
+        f"floor (naive vs blockwise) {share_f:.6f}, margin "
+        f"{ROUTING_MARGIN}; remat recompute routed as the forward: "
+        f"{rk.recompute_equal()}; two kernel steps equal bit for bit: "
+        f"{bit_equal}; aux loss {float(mk['aux_loss'])}; walls kernel "
+        f"{wall_k:.3f} s, plain {wall_f:.3f} s")
+    routing_check("moe-train", share_k, share_f)
+    if not all(e <= b for e, b in zip(errs, bounds)) or \
+            not rk.recompute_equal():
+        raise AssertionError(f"moe-train: {msg}")
+
+    opt_cfg = OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
+                              total_steps=MOE_TRAIN_STEPS + 2)
+    losses, auxes, walls, launches, peak, _, _ = timed_steps(
+        "moe-train", cfg, params, pipeline, dev, MOE_TRAIN_STEPS, opt_cfg)
+    want = {"flash_attention_fwd": 2 * cfg.n_layers * MOE_TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * MOE_TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"moe-train: launches {launches} (want {want})")
+    med = float(np.median(walls))
+    tokens = MOE_TRAIN_B * TRAIN_S
+    live = MOE_TRAIN_B * cfg.n_heads * TRAIN_S * (TRAIN_S + 1) // 2
+    model_flops = 6 * n_active * tokens
+    attn_flops = 12 * cfg.resolved_head_dim * live * cfg.n_layers
+    mfu = (model_flops + attn_flops) / med / BF16_FLOPS_PER_S
+    log(f"moe-train: {cfg.name} at {cfg.n_layers} of 28 layers, "
+        f"B={MOE_TRAIN_B} S={TRAIN_S}, bf16 params, fp32 AdamW moments, "
+        f"remat per layer, 1 warm-up + {MOE_TRAIN_STEPS} timed steps: losses "
+        f"{losses}, aux losses {auxes}; step walls "
+        f"{[round(w, 6) for w in walls]} s, median {med:.6f} s = "
+        f"{tokens / med:.1f} tokens/s; MFU {mfu:.6f} (6 N T over the "
+        f"{n_active} active parameters + 12 D per live attention pair, no "
+        f"remat, against {BF16_FLOPS_PER_S:.3e} flop/s); launches "
+        f"{launches}; max_memory_allocated {peak} bytes [{label}]")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def slstm_device_time(prof):
+    """(forward, backward) device seconds of the sLSTM recurrences in a
+    profiled step, and the number of their ranges: the kernels launched
+    under the ``slstm_time_loop`` ranges, and those launched by the
+    backward of the ops recorded there (events outside the ranges with
+    their autograd sequence numbers, outermost only)."""
+    def under(e):
+        return sum(k.duration for k in e.kernels) + sum(under(c) for c in
+                                                        e.cpu_children)
+
+    def inside(e):
+        yield e
+        for c in e.cpu_children:
+            yield from inside(c)
+
+    events = prof.events()
+    loops = [e for e in events if e.name == "slstm_time_loop" and
+             e.device_type == torch.autograd.DeviceType.CPU]
+    in_loops = {id(x) for e in loops for x in inside(e)}
+    nrs = {x.sequence_nr for e in loops for x in inside(e)
+           if x.sequence_nr >= 0}
+    bwd = [e for e in events if e.sequence_nr in nrs and
+           id(e) not in in_loops and e.device_type ==
+           torch.autograd.DeviceType.CPU]
+    ids = {id(e) for e in bwd}
+
+    def outermost(e):
+        p = e.cpu_parent
+        while p is not None:
+            if id(p) in ids:
+                return False
+            p = p.cpu_parent
+        return True
+
+    fwd_us = sum(under(e) for e in loops)
+    bwd_us = sum(under(e) for e in bwd if outermost(e))
+    return fwd_us / 1e6, bwd_us / 1e6, len(loops)
+
+
+def phase_ssm(dev, root, seed):
+    """xlstm-125m at full size: the first step's gradients with the
+    chunkwise mLSTM against the sequential one (fp32 weights), timed bf16
+    steps, one profiled (the sLSTM recurrences' share of device time);
+    then the engine, and decode against the forward on the card."""
+    cfg = get_config(SSM_ARCH)
+    label = card_label()
+    pipeline = train_pipeline(root, cfg.vocab_size, seed, batch=SSM_TRAIN_B,
+                              seq=SSM_TRAIN_S)
+    params = init_params(cfg, seed=seed, device=dev)
+    names = [n for n, _ in named_leaves(params)]
+    n_params = sum(t.numel() for t in leaves(params))
+    batch = {k: v[:, :SSM_CHECK_S] for k, v in
+             on_card(pipeline.next_batch(), dev).items()}
+    # The two mLSTM forms on an fp32 copy of the weights: in bf16 the
+    # sequential form rounds each k v^T to bf16 (as the reference's does)
+    # where the chunkwise form does not, which the small gate gradients
+    # carry at the 1e-1 level; in fp32 the forms must agree.
+    wide = tree_map(lambda t: t.float(), params)
+    mc, g_c, wall_c = train_grads(wide, cfg, batch, RoutingRecorder())
+    seq_cfg = dataclasses.replace(cfg, mlstm_impl="sequential")
+    ms_, g_s, wall_s = train_grads(wide, seq_cfg, batch, RoutingRecorder())
+    *errs, msg = grad_errors(names, (mc, g_c), (ms_, g_s))
+    del g_c, g_s
+    log(f"ssm[plain]: {cfg.name} first step's gradients of all {len(names)} "
+        f"leaves ({n_params} parameters), B={SSM_TRAIN_B} S={SSM_CHECK_S}, "
+        f"fp32 weights, mLSTM chunkwise vs sequential: {msg} (bounds "
+        f"{TRAIN_BOUNDS}); walls chunkwise {wall_c:.3f} s, sequential "
+        f"{wall_s:.3f} s")
+    if not all(e <= b for e, b in zip(errs, TRAIN_BOUNDS)):
+        raise AssertionError(f"ssm: {msg}")
+
+    opt_cfg = OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
+                              total_steps=SSM_TRAIN_STEPS + 3)
+    # No remat: 0.2e9 parameters' activations fit, and remat would run
+    # every time loop's forward twice.
+    losses, _, walls, launches, peak, opt_state, step = timed_steps(
+        "ssm", cfg, params, pipeline, dev, SSM_TRAIN_STEPS, opt_cfg,
+        remat=False)
+    if any(launches.values()):
+        raise AssertionError(f"ssm: attention kernels launched {launches}")
+    med = float(np.median(walls))
+    tokens = SSM_TRAIN_B * SSM_TRAIN_S
+    log(f"ssm: {cfg.name} B={SSM_TRAIN_B} S={SSM_TRAIN_S}, bf16 params, "
+        f"fp32 AdamW moments, no remat, 1 warm-up + {SSM_TRAIN_STEPS} timed "
+        f"steps: losses {losses}; step walls "
+        f"{[round(w, 6) for w in walls]} s, median {med:.6f} s = "
+        f"{tokens / med:.1f} tokens/s, MFU "
+        f"{6 * n_params * tokens / med / BF16_FLOPS_PER_S:.6f} (6 N T); "
+        f"max_memory_allocated {peak} bytes [{label}]")
+
+    inner = model_ssm._slstm_recurrence
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function("slstm_time_loop"):
+            return inner(*args, **kw)
+
+    model_ssm._slstm_recurrence = ranged
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        batch = {k: v[:, :SSM_PROFILE_S] for k, v in
+                 on_card(pipeline.next_batch(), dev).items()}
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t
+    finally:
+        model_ssm._slstm_recurrence = inner
+    t = time.perf_counter()
+    busy, n_events, by_name = device_activity(prof)
+    read = time.perf_counter() - t
+    fwd_s, bwd_s, n_loops = slstm_device_time(prof)
+    post = time.perf_counter() - t
+    busy_msg = "device busy not measured (the profiler saw no device time)"
+    if busy:
+        busy_msg = (f"device busy {busy:.6f} s of the profiled wall "
+                    f"{pwall:.6f} s ({n_events} device events); the sLSTM "
+                    f"recurrences ({n_loops} ranges: the input projection "
+                    f"and the time loop) {fwd_s:.6f} s forward + {bwd_s:.6f} s "
+                    f"backward = {(fwd_s + bwd_s) / busy:.6f} of device "
+                    f"busy time; most device time: " + "; ".join(
+                        f"{name[:70]} {sec:.6f} s" for name, sec in sorted(
+                            by_name.items(), key=lambda kv: -kv[1])[:6]))
+    log(f"ssm: one step at B={SSM_TRAIN_B} S={SSM_PROFILE_S} under "
+        f"torch.profiler: {busy_msg} (trace read in {read:.1f} s, its "
+        f"sLSTM events in {post - read:.1f} s more) [{label}]")
+    del opt_state, step
+
+    reqs = [Request(i, np.random.default_rng(20 + i).integers(
+        1, cfg.vocab_size, SSM_PROMPT).tolist(), max_new_tokens=SSM_NEW_TOKENS)
+        for i in range(SSM_REQUESTS)]
+    engine = ServingEngine(cfg, params, device=dev, **SSM_SERVE)
+    zero_launches()
+    t = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    calls = engine.stats.decode_steps + SSM_REQUESTS * SSM_PROMPT
+    if len(done) != SSM_REQUESTS or paged.LAUNCHES["paged_attention"] or \
+            any(len(r.generated) != SSM_NEW_TOKENS for r in done):
+        raise AssertionError(f"ssm: served {len(done)} requests, paged "
+                             f"{paged.LAUNCHES['paged_attention']}")
+    # Decode against the forward on the card, fp32 weights: 4 lanes of
+    # SSM_PROMPT + SSM_NEW_TOKENS tokens teacher-forced through
+    # decode_step, against the forward (S < 128: sequential mLSTM) and
+    # the chunkwise forward.
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (SSM_SERVE["slots"], SSM_PROMPT + SSM_NEW_TOKENS)
+    )).to(dev)
+    with torch.no_grad():
+        state = init_decode_state(cfg, toks.shape[0], toks.shape[1],
+                                  device=dev)
+        dec = []
+        for t in range(toks.shape[1]):
+            lg, state = decode_step(wide, cfg, toks[:, t:t + 1], state,
+                                    torch.full((toks.shape[0],), t,
+                                               dtype=torch.int32,
+                                               device=dev))
+            dec.append(lg[:, 0])
+        dec = torch.stack(dec, 1)
+        seq_fwd, _ = forward(wide, cfg, tokens=toks)
+        chk_fwd, _ = forward(wide, dataclasses.replace(
+            cfg, mlstm_impl="chunkwise"), tokens=toks)
+    del wide
+    err_s, rel_s = logit_errors(dec, seq_fwd)
+    err_c, rel_c = logit_errors(dec, chk_fwd)
+    hold((err_s, rel_s), SSM_FP32_BOUNDS, "ssm decode vs forward")
+    hold((err_c, rel_c), SSM_FP32_BOUNDS, "ssm decode vs chunkwise forward")
+    log(f"ssm: engine {SSM_SERVE}, {SSM_REQUESTS} requests of {SSM_PROMPT} "
+        f"+ {SSM_NEW_TOKENS} tokens: {dataclasses.asdict(engine.stats)}; "
+        f"engine.run {wall:.6f} s, {calls} decode_step calls = "
+        f"{1e3 * wall / calls:.4f} ms per call; decode vs forward over "
+        f"{tuple(toks.shape)} tokens on fp32 weights: (max_abs_err, relative "
+        f"L2 err) {(err_s, rel_s)} against the forward (sequential mLSTM), "
+        f"{(err_c, rel_c)} against the chunkwise forward (bounds "
+        f"{SSM_FP32_BOUNDS}) [{label}]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe(dev, seed):
+    """deepseek-moe-16b at full width and depth: prefill and serving under
+    the routing rule, then the flash kernels at its MHA shape. Returns
+    the launches and the MHA replay's times."""
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"model: {MOE_ARCH} at full size, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"{cfg.moe.n_experts} experts of {cfg.d_expert_resolved} top-"
+        f"{cfg.moe.top_k} + {cfg.moe.n_shared} shared, capacity_factor "
+        f"{cfg.moe.capacity_factor}, {n_params} parameters, random bf16 "
+        f"from seed 0 in {time.perf_counter() - t0:.2f} s")
+    launches = {"moe-prefill": {"flash_attention_fwd": timed(
+        "moe-prefill", routed_prefill, params, cfg, dev, "moe-prefill", 19)}}
+    launches["moe-serve"] = {"paged_attention": timed(
+        "moe-serve", routed_serve, params, cfg, dev, "moe-serve", MOE_SERVE,
+        MOE_REQUESTS, MOE_SYS_LEN, MOE_USER_LEN, MOE_NEW_TOKENS)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, timed("replay[flash MHA]", replay_flash_mha, dev, cfg)
+
+
+def phase_jamba(dev):
+    """Jamba reduced, capacity_factor 1.25: prefill and serving under the
+    routing rule. Returns the launches."""
+    base = reduced(get_config(JAMBA_ARCH), **JAMBA)
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=1.25))
+    params = init_params(cfg, seed=0, device=dev)
+    log(f"model: {cfg.name} ({cfg.n_layers} layers "
+        f"{[m + '+' + p for m, p in cfg.layer_pattern]}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k}, capacity_factor {cfg.moe.capacity_factor}, "
+        f"Mamba d_state {cfg.mamba.d_state}, vocab {cfg.vocab_size}), "
+        f"{sum(t.numel() for t in leaves(params))} parameters")
+    launches = {"jamba-prefill": {"flash_attention_fwd": timed(
+        "jamba-prefill", routed_prefill, params, cfg, dev, "jamba-prefill",
+        22)}}
+    launches["jamba-serve"] = {"paged_attention": timed(
+        "jamba-serve", routed_serve, params, cfg, dev, "jamba-serve",
+        JAMBA_SERVE, JAMBA_REQUESTS, JAMBA_SYS_LEN, JAMBA_USER_LEN,
+        JAMBA_NEW_TOKENS)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     """Run every phase; any failure raises and exits non-zero."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1884,7 +2789,13 @@ def main(argv=None) -> int:
                     help="wall-clock budget of the plain-version replay")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the train phases' corpus and weights")
+    ap.add_argument("--phases", default=",".join(PHASE_GROUPS),
+                    help="comma-separated phase groups to run (default: "
+                         "all): " + ", ".join(PHASE_GROUPS))
     args = ap.parse_args(argv)
+    groups = set(args.phases.split(","))
+    if not groups <= set(PHASE_GROUPS):
+        ap.error(f"unknown phase groups {sorted(groups - set(PHASE_GROUPS))}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -1922,17 +2833,21 @@ def main(argv=None) -> int:
             (0, 0, "flash_bwd_dkdv_kernel"), (0, 1, "flash_bwd_dq_kernel"))
         for d in flash.HEAD_DIMS))
 
-    sweep_err = phase_kernels(dev)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        root = Path(tmp)
-        phase_geo(root)
-        launches, largest, _ = phase_ptf(
-            root, "ptf", args.ptf_cells, "auto", args.plain_budget_s,
-            main_path=True)
-        phase_ptf(root, "ptf-full", args.ptf_full_cells, "block",
-                  args.plain_budget_s, main_path=False)
-    rows = replay(largest)
     record = []
+    rows = []
+    if "join" in groups:
+        t0 = time.perf_counter()
+        sweep_err = phase_kernels(dev)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            root = Path(tmp)
+            phase_geo(root)
+            launches, largest, _ = phase_ptf(
+                root, "ptf", args.ptf_cells, "auto", args.plain_budget_s,
+                main_path=True)
+            phase_ptf(root, "ptf-full", args.ptf_full_cells, "block",
+                      args.plain_budget_s, main_path=False)
+        rows = replay(largest)
+        log(f"group join: {time.perf_counter() - t0:.2f} s")
     for row in rows:
         name = row["name"]
         record.append({
@@ -1944,6 +2859,36 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": None,
             "earlier": "PERF.md §6"})
 
+    if "attn" in groups:
+        record += timed("group attn", attention_rows, dev)
+    if "train" in groups:
+        record += timed("group train", train_rows, dev, args.seed)
+    slice7 = {}
+    if "moe" in groups:
+        launches, mha = phase_moe(dev, args.seed)
+        slice7.update(launches)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+            slice7["moe-train"] = timed("moe-train", phase_moe_train, dev,
+                                        Path(tmp), args.seed)
+    if "ssm" in groups:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as tmp:
+            timed("ssm", phase_ssm, dev, Path(tmp), args.seed)
+    if "jamba" in groups:
+        slice7.update(phase_jamba(dev))
+    for row in record:
+        add_slice7(row, slice7, mha if "moe" in groups else {})
+    log(f"total: {time.perf_counter() - t_start:.2f} s")
+    print(json.dumps({"kernels": record}))
+    print(card_label())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def attention_rows(dev):
+    """The serving slice's phases (attention kernels, prefill, serve,
+    replay); returns their kernels JSON rows."""
     attn_err = phase_attention_kernels(dev)
     cfg = get_config(ARCH)
     t0 = time.perf_counter()
@@ -1965,6 +2910,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     attn_rows = phase_attention_replay(dev, paged_args)
+    record = []
     for name, row in attn_rows.items():
         extra = {k: row[k] for k in ("graph_ms", "splits", "b1_ms",
                                      "b1_graph_ms", "b1_splits") if k in row}
@@ -1976,15 +2922,20 @@ def main(argv=None) -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], **extra,
             "earlier": "PERF.md §6"})
+    return record
 
+
+def train_rows(dev, seed):
+    """The training slice's phases (backward kernels, train, backward
+    replay, resume); returns the backward's kernels JSON row."""
     bwd_err = phase_train_kernels(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         root = Path(tmp)
-        train_launches = phase_train(dev, root / "full", args.seed)
+        train_launches = phase_train(dev, root / "full", seed)
         row = phase_train_replay(dev)
-        phase_resume(dev, root / "resume", args.seed)
+        phase_resume(dev, root / "resume", seed)
     name = "flash_attention_bwd"
-    record.append({
+    return [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": train_launches[name],
         "max_abs_err": max(row["max_abs_err"], bwd_err), "ms": row["ms"],
@@ -1992,14 +2943,22 @@ def main(argv=None) -> int:
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
         "train_fwd_launches": train_launches["flash_attention_fwd"],
-        "earlier": "PERF.md §6"})
-    log(f"total: {time.perf_counter() - t_start:.2f} s")
-    print(json.dumps({"kernels": record}))
-    print(card_label())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+        "earlier": "PERF.md §6"}]
+
+
+def add_slice7(row, slice7, mha):
+    """The MoE and SSM slice's launches of a kernel (each phase's counts
+    set to 0 before it and read after) and its times at deepseek's MHA
+    shape, as extra keys of its kernels JSON row."""
+    name = row["name"]
+    per_phase = {phase: counts[name] for phase, counts in slice7.items()
+                 if counts.get(name)}
+    if per_phase:
+        row["slice7_launches"] = per_phase
+    keys = {"flash_attention_fwd": ("mha_fwd_ms", "mha_fwd_library_ms"),
+            "flash_attention_bwd": ("mha_bwd_graph_ms",
+                                    "mha_bwd_library_ms")}.get(name, ())
+    row.update({k: mha[k] for k in keys if k in mha})
 
 
 if __name__ == "__main__":

@@ -6,14 +6,17 @@ returns, with every leaf turned into a numpy array (any float dtype,
 ``ml_dtypes.bfloat16`` included), and gives the dict
 ``repro_torch.models.model`` reads: the leading ``n_periods`` axis of
 each block leaf is split into layers (layer ``p * period + i`` is block
-``b{i}`` of period ``p``). The ``(in, out)`` layout of the weight
-matrices and the ``(vocab, d)`` layout of the tables are kept on
-purpose: both sides compute ``x @ w``. bf16 and fp16 pass through fp32
-numpy, which holds them exactly.
+``b{i}`` of period ``p``; an MoE expert stack keeps its expert axis
+under the period axis). The ``(in, out)`` layout of the weight matrices
+and the ``(vocab, d)`` layout of the tables are kept on purpose: both
+sides compute ``x @ w``. bf16 and fp16 pass through fp32 numpy, which
+holds them exactly. ``decode_state_from_numpy`` carries the reference's
+decode state (``init_decode_state`` or a ``decode_step`` result) across
+the same way.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -24,6 +27,9 @@ from repro_torch.models.model import check_supported, resolve_device
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32, "float64": torch.float64}
 _NORMS = ("norm1", "norm2", "final_norm")
+# Leaves the reference makes fp32 whatever the parameter dtype: the MoE
+# router, Mamba's dt bias, A_log and D, the xLSTM gate biases.
+_FP32_LEAVES = ("router", "dt_bias", "A_log", "D", "if_bias", "g_bias")
 
 
 def _tensor(a: Any, device: torch.device,
@@ -42,8 +48,8 @@ def _convert(tree: Dict[str, Any], device: torch.device,
              dtype: Optional[torch.dtype], index: Optional[int] = None,
              in_norm: bool = False) -> Dict[str, Any]:
     """Convert a nested dict, taking row ``index`` of every leaf when
-    given (one period of a stacked block). Norm parameters keep their
-    dtype."""
+    given (one period of a stacked block). Norm parameters and the fp32
+    leaves keep their dtype."""
     out: Dict[str, Any] = {}
     for key, val in tree.items():
         norm = in_norm or key in _NORMS
@@ -51,7 +57,8 @@ def _convert(tree: Dict[str, Any], device: torch.device,
             out[key] = _convert(val, device, dtype, index, norm)
         else:
             leaf = val if index is None else np.asarray(val)[index]
-            out[key] = _tensor(leaf, device, None if norm else dtype)
+            keep = norm or key in _FP32_LEAVES
+            out[key] = _tensor(leaf, device, None if keep else dtype)
     return out
 
 
@@ -62,7 +69,8 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
     """The reference's ``init_params`` pytree (numpy leaves) as the
     port's parameters on ``device``. ``dtype`` None keeps each leaf's
     dtype; a dtype casts every weight, bias and table to it while the
-    norm parameters stay as they are (fp32 in the reference)."""
+    norm parameters and the fp32 leaves (``_FP32_LEAVES``) stay as they
+    are."""
     check_supported(cfg)
     dev = resolve_device(device)
     layers = []
@@ -74,3 +82,14 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
     rest = {k: v for k, v in tree.items() if k != "blocks"}
     params.update(_convert(rest, dev, dtype))
     return params
+
+
+def decode_state_from_numpy(cfg: ModelConfig, state: Dict[str, Any],
+                            device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """The reference's decode state (numpy leaves, ``b{i}`` entries
+    stacked over the periods) as the port's: one dict per layer, every
+    tensor in its own dtype, the lane on axis 0."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [_convert(state[f"b{i}"], dev, None, index=p)
+            for p in range(cfg.n_periods) for i in range(cfg.period)]

@@ -1,16 +1,19 @@
-"""Model assembly for the attention + dense-MLP architectures.
+"""Model assembly for all ten architectures.
 
 The port of ``repro/models/model.py``. The reference scans over periods
 of stacked per-period weights to keep its HLO small; PyTorch runs
 eagerly, so here the stack is a loop over layers and ``params["layers"]``
 holds one dict of tensors per layer (layer ``p * period + i`` is block
-``b{i}`` of period ``p`` in the reference's pytree). Decode state is one
-``{"k", "v"}`` cache per layer.
+``b{i}`` of period ``p`` in the reference's pytree). A block is a mixer
+(``attn``, ``mamba``, ``mlstm`` or ``slstm``) and an MLP (``dense``,
+``moe`` or ``none``), as ``cfg.layer_pattern`` says. Decode state is one
+dict per layer, the lane on axis 0 of every tensor: ``{"k", "v"}`` for
+attention, ``{"h", "conv"}`` for Mamba, ``{"C", "n", "m"}`` for mLSTM and
+``{"c", "n", "m", "h"}`` for sLSTM.
 
-Ported mixers and MLPs: ``attn`` with ``dense`` (or ``none``). The
-Mamba, mLSTM and sLSTM mixers, the MoE MLP and sequence parallelism
-raise ``NotImplementedError``: their modules are later slices of the
-port (``ROADMAP.md`` queue 1 item 7).
+Sequence parallelism raises ``NotImplementedError``: it needs the
+sharding slice of the port (``ROADMAP.md`` queue 1, "Sharding and
+launch").
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; ``impl="plain"`` runs the attention kernels' plain
@@ -25,28 +28,25 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.layers import (Params, apply_mlp, apply_norm, embed,
                                        init_embedding, init_mlp, init_norm,
                                        rope_tables, unembed)
 
-_ROADMAP = "ROADMAP.md queue 1 item 7"
-_NOT_PORTED = {"mamba": "models/ssm.py", "mlstm": "models/ssm.py",
-               "slstm": "models/ssm.py", "moe": "models/moe.py"}
+DecodeState = List[Dict[str, torch.Tensor]]
+
+# The per-mixer decode states' keys, in the reference's tuple order.
+_STATE_KEYS = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "m", "h")}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet:
-    SSM mixers, MoE MLPs and sequence parallelism."""
-    for mixer, mlp in cfg.layer_pattern:
-        for part in (mixer, mlp):
-            if part in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"{cfg.name}: {part!r} blocks are not ported yet "
-                    f"({_NOT_PORTED[part]}, {_ROADMAP})")
+    sequence parallelism."""
     if cfg.seq_parallel:
         raise NotImplementedError(
             f"{cfg.name}: seq_parallel needs the sharding slice "
-            f"({_ROADMAP}, Sharding and launch)")
+            f"(ROADMAP.md queue 1, Sharding and launch)")
 
 
 def resolve_device(device) -> torch.device:
@@ -58,16 +58,28 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """(mixer, mlp) of every layer, in order."""
+    return list(cfg.layer_pattern) * cfg.n_periods
+
+
 # ------------------------------------------------------------------- init --
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, mlp: str,
-                dtype: torch.dtype) -> Params:
-    """One attention block's parameters."""
+_INIT_MIXER = {"attn": attn.init_attention, "mamba": ssm.init_mamba,
+               "mlstm": ssm.init_mlstm, "slstm": ssm.init_slstm}
+
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, mixer: str,
+                mlp: str, dtype: torch.dtype) -> Params:
+    """One block's parameters."""
     dev = gen.device
     p: Params = {"norm1": init_norm(cfg.d_model, cfg.norm_type, dev),
-                 "mixer": attn.init_attention(gen, cfg, dtype)}
+                 "mixer": _INIT_MIXER[mixer](gen, cfg, dtype)}
     if mlp == "dense":
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
+    elif mlp == "moe":
+        p["mlp"] = moe_mod.init_moe(gen, cfg, dtype)
+    if mlp != "none":
         p["norm2"] = init_norm(cfg.d_model, cfg.norm_type, dev)
     return p
 
@@ -83,10 +95,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    layers: List[Params] = []
-    for _ in range(cfg.n_periods):
-        for _, mlp in cfg.layer_pattern:
-            layers.append(_init_block(gen, cfg, mlp, dtype))
+    layers = [_init_block(gen, cfg, mixer, mlp, dtype)
+              for mixer, mlp in layer_kinds(cfg)]
     params: Params = {"layers": layers,
                       "final_norm": init_norm(cfg.d_model, cfg.norm_type,
                                               dev)}
@@ -104,17 +114,39 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 # ---------------------------------------------------------------- forward --
 
-def _apply_block_seq(bp: Params, h: torch.Tensor, cfg: ModelConfig,
-                     mlp: str, positions: torch.Tensor, causal: bool,
-                     attention_impl: str, impl: str, rope) -> torch.Tensor:
-    """One block over a full sequence."""
-    hn = apply_norm(bp["norm1"], h, cfg.norm_type)
-    h = h + attn.attention_forward(bp["mixer"], hn, cfg, positions, causal,
-                                   attention_impl, impl, rope)
+def _apply_mlp(bp: Params, h: torch.Tensor, cfg: ModelConfig, mlp: str
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's MLP half with its residual: (h, the MoE aux loss or
+    None)."""
+    if mlp == "none":
+        return h, None
+    hn = apply_norm(bp["norm2"], h, cfg.norm_type)
     if mlp == "dense":
-        hn = apply_norm(bp["norm2"], h, cfg.norm_type)
-        h = h + apply_mlp(bp["mlp"], hn, cfg.mlp_type)
-    return h
+        return h + apply_mlp(bp["mlp"], hn, cfg.mlp_type), None
+    y, aux = moe_mod.moe_forward(bp["mlp"], hn, cfg)
+    return h + y, aux
+
+
+def _apply_block_seq(bp: Params, h: torch.Tensor, cfg: ModelConfig,
+                     mixer: str, mlp: str, positions: torch.Tensor,
+                     causal: bool, attention_impl: str, impl: str, rope
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block over a full sequence: (h, the fp32 MoE aux loss or
+    None)."""
+    hn = apply_norm(bp["norm1"], h, cfg.norm_type)
+    if mixer == "attn":
+        mixed = attn.attention_forward(bp["mixer"], hn, cfg, positions,
+                                       causal, attention_impl, impl, rope)
+    elif mixer == "mamba":
+        mixed, _ = ssm.mamba_forward(bp["mixer"], hn, cfg)
+    elif mixer == "mlstm":
+        mixed, _ = ssm.mlstm_forward(bp["mixer"], hn, cfg,
+                                     impl=cfg.mlstm_impl)
+    elif mixer == "slstm":
+        mixed, _ = ssm.slstm_forward(bp["mixer"], hn, cfg)
+    else:
+        raise ValueError(mixer)
+    return _apply_mlp(bp, h + mixed, cfg, mlp)
 
 
 def _logits(params: Params, cfg: ModelConfig, h: torch.Tensor
@@ -133,7 +165,8 @@ def forward(params: Params, cfg: ModelConfig, *,
             embeds: Optional[torch.Tensor] = None,
             attention_impl: str = "auto", remat: bool = False,
             impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (fp32 logits (B, S, V), aux loss 0).
+    """Full-sequence forward. Returns (fp32 logits (B, S, V), the fp32
+    aux loss summed over the MoE layers, 0 without any).
 
     ``tokens``: (B, S) integers (LM / VLM text); ``embeds``: (B, S_e, d)
     precomputed frontend embeddings (audio frames / vision patches), cast
@@ -152,53 +185,82 @@ def forward(params: Params, cfg: ModelConfig, *,
     h = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
-    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) \
+        if cfg.uses_attention else None
     causal = not cfg.encoder_only
     remat = remat and torch.is_grad_enabled()
-    for layer, (_, mlp) in zip(params["layers"],
-                               cfg.layer_pattern * cfg.n_periods):
-        args = (layer, h, cfg, mlp, positions, causal, attention_impl, impl,
-                rope)
-        h = checkpoint(_apply_block_seq, *args, use_reentrant=False) \
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for layer, (mixer, mlp) in zip(params["layers"], layer_kinds(cfg)):
+        args = (layer, h, cfg, mixer, mlp, positions, causal,
+                attention_impl, impl, rope)
+        h, a = checkpoint(_apply_block_seq, *args, use_reentrant=False) \
             if remat else _apply_block_seq(*args)
-    return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32,
-                                                device=h.device)
+        if a is not None:
+            aux = aux + a
+    return _logits(params, cfg, h), aux
 
 
 # ----------------------------------------------------------------- decode --
 
+def _init_state(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
+                dev: torch.device) -> Dict[str, torch.Tensor]:
+    """One layer's zeroed decode state."""
+    if mixer == "attn":
+        return attn.init_kv_cache(cfg, batch, max_len, device=dev)
+    if mixer == "mamba":
+        return ssm.init_mamba_state(cfg, batch, dev)
+    init = ssm.init_mlstm_state if mixer == "mlstm" else \
+        ssm.init_slstm_state
+    return dict(zip(_STATE_KEYS[mixer], init(cfg, batch, dev)))
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """One zeroed bf16 ``{"k", "v"}`` cache (batch, max_len, Hk, Dh) per
-    layer."""
+                      device="cuda") -> DecodeState:
+    """One zeroed state dict per layer (see the module docstring): bf16
+    (batch, max_len, Hk, Dh) K and V caches for attention, the fp32
+    recurrent states (and Mamba's bf16 conv window) otherwise."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [attn.init_kv_cache(cfg, batch, max_len, device=dev)
-            for _ in range(cfg.n_layers)]
+    return [_init_state(cfg, mixer, batch, max_len, dev)
+            for mixer, _ in layer_kinds(cfg)]
+
+
+def _mixer_step(bp: Params, hn: torch.Tensor, cfg: ModelConfig, mixer: str,
+                st: Dict[str, torch.Tensor], pos: torch.Tensor, impl: str,
+                rope) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token through one layer's mixer: (output, the layer's new
+    state)."""
+    if mixer == "attn":
+        return attn.decode_attention(bp, hn, cfg, st, pos, impl=impl,
+                                     rope=rope)
+    if mixer == "mamba":
+        return ssm.mamba_step(bp, hn, st, cfg)
+    step = ssm.mlstm_step if mixer == "mlstm" else ssm.slstm_step
+    keys = _STATE_KEYS[mixer]
+    out, new = step(bp, hn, tuple(st[k] for k in keys), cfg)
+    return out, dict(zip(keys, new))
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                state: List[Dict[str, torch.Tensor]], pos: torch.Tensor,
-                impl: str = "kernel"
-                ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+                state: DecodeState, pos: torch.Tensor,
+                impl: str = "kernel") -> Tuple[torch.Tensor, DecodeState]:
     """One decode step. tokens: (B, 1) integers; pos: (B,) write
     positions. Returns (fp32 logits (B, 1, V), the updated state): each
-    layer's cache is written in place under ``kv_update="scatter"``."""
+    attention layer's cache is written in place under
+    ``kv_update="scatter"``; the recurrent states are new tensors."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     check_supported(cfg)
     h = embed(params["embed"], tokens)
-    rope = rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    rope = rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta) \
+        if cfg.uses_attention else None
     new_state = []
-    for layer, st, (_, mlp) in zip(params["layers"], state,
-                                   cfg.layer_pattern * cfg.n_periods):
+    for layer, st, (mixer, mlp) in zip(params["layers"], state,
+                                       layer_kinds(cfg)):
         hn = apply_norm(layer["norm1"], h, cfg.norm_type)
-        mixed, st = attn.decode_attention(layer["mixer"], hn, cfg, st, pos,
-                                          impl=impl, rope=rope)
-        h = h + mixed
-        if mlp == "dense":
-            hn = apply_norm(layer["norm2"], h, cfg.norm_type)
-            h = h + apply_mlp(layer["mlp"], hn, cfg.mlp_type)
+        mixed, st = _mixer_step(layer["mixer"], hn, cfg, mixer, st, pos,
+                                impl, rope)
+        h, _ = _apply_mlp(layer, h + mixed, cfg, mlp)
         new_state.append(st)
     return _logits(params, cfg, h), new_state
 

@@ -11,24 +11,28 @@ attention core is the paged kernel on a page view of that cache
 
 As in the reference, every admitted prompt is replayed token by token
 through the decode path: the dense slot cache cannot splice cached
-pages. Each replay step runs on the admitted slot's lane alone (a view of
-the batch cache, written in place), so the other lanes' caches are never
-touched.
+pages. Without MoE layers the lanes of a step do not affect each other,
+so each replay step runs on the admitted slot's lane alone (a view of
+the batch state, its caches written in place). An MoE layer couples the
+lanes of a step: its capacity comes from all of the step's tokens, and
+each (token, k) queues behind the earlier lanes'. So with MoE layers a
+replay step runs every lane, as the reference's does: the admitted lane
+gets the prompt token, every other lane token 0 at position 0 on its
+real state, and only the admitted lane's new state is kept; the other
+lanes' states end as they were.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import (decode_step, init_decode_state,
-                                      resolve_device)
+from repro_torch.models.model import (DecodeState, decode_step,
+                                      init_decode_state, resolve_device)
 from repro_torch.serve.kvcache import PagedKVCacheManager
-
-KVState = List[Dict[str, torch.Tensor]]
 
 
 @dataclasses.dataclass
@@ -77,9 +81,11 @@ class ServingEngine:
             page_size=page_size, budget_bytes=cache_budget_pages * page_bytes,
             page_bytes=page_bytes, policy=policy)
         self.stats = EngineStats()
+        self.all_lane_replay = any(mlp == "moe" for _, mlp in
+                                   cfg.layer_pattern)
 
     @torch.no_grad()
-    def _decode(self, params, tokens: torch.Tensor, state: KVState,
+    def _decode(self, params, tokens: torch.Tensor, state: DecodeState,
                 pos: torch.Tensor):
         """One decode step of the model (logits, state')."""
         return decode_step(params, self.cfg, tokens, state, pos,
@@ -88,17 +94,52 @@ class ServingEngine:
     def _prefill_into_slot(self, state, slot: int, tokens: Sequence[int],
                            start: int) -> None:
         """Run tokens [start:] through the decode path to build the slot's
-        KV. The reference steps every lane and keeps only this one
-        (``_merge_slot``); here the step runs on this lane's view alone."""
-        lane = [{k: t[slot:slot + 1] for k, t in st.items()}
-                for st in state["kv"]]
-        for t in range(start, len(tokens)):
-            tok = torch.full((1, 1), tokens[t], dtype=torch.int32,
-                             device=self.device)
-            pos = torch.full((1,), t, dtype=torch.int32, device=self.device)
-            _, lane = self._decode(self.params, tok, lane, pos)
-        _merge_slot(state["kv"], lane, slot)
+        state (see the module docstring for which lanes a step runs)."""
+        if self.all_lane_replay:
+            self._replay_all_lanes(state, slot, tokens, start)
+        else:
+            lane = [{k: t[slot:slot + 1] for k, t in st.items()}
+                    for st in state["kv"]]
+            for t in range(start, len(tokens)):
+                tok = torch.full((1, 1), tokens[t], dtype=torch.int32,
+                                 device=self.device)
+                pos = torch.full((1,), t, dtype=torch.int32,
+                                 device=self.device)
+                _, lane = self._decode(self.params, tok, lane, pos)
+            _merge_slot(state["kv"], lane, slot)
         state["next_logits"][slot] = None
+
+    def _replay_all_lanes(self, state, slot: int, tokens: Sequence[int],
+                          start: int) -> None:
+        """The reference's replay: every step runs all ``slots`` lanes, the
+        admitted one on its prompt and the others on token 0 at position 0
+        with their current state, and keeps the admitted lane's new state.
+        The recurrent states are new tensors each step, so only the lane
+        is copied back. Under ``kv_update="scatter"`` the step writes every
+        lane's K/V in place, the others' at position 0; a lane at position
+        0 attends to nothing but what the step just wrote there, so the
+        others' position-0 rows are saved once before the replay and put
+        back once after it (2 rows a layer and lane: cheaper than a
+        scratch cache or a restore after every step)."""
+        others = torch.tensor([s for s in range(self.slots) if s != slot],
+                              dtype=torch.long, device=self.device)
+        saved = [{k: st[k][others, 0].clone() for k in ("k", "v")}
+                 if "k" in st else None for st in state["kv"]]
+        toks = np.zeros((self.slots, 1), np.int32)
+        poss = np.zeros((self.slots,), np.int32)
+        for t in range(start, len(tokens)):
+            toks[slot, 0], poss[slot] = tokens[t], t
+            _, new = self._decode(self.params,
+                                  torch.from_numpy(toks).to(self.device),
+                                  state["kv"],
+                                  torch.from_numpy(poss).to(self.device))
+            _merge_slot(state["kv"], [{k: x[slot:slot + 1]
+                                       for k, x in st.items()}
+                                      for st in new], slot)
+        for st, rows in zip(state["kv"], saved):
+            if rows is not None:
+                for k, row in rows.items():
+                    st[k][others, 0] = row.to(st[k].dtype)
 
     def run(self, requests: Sequence[Request]) -> List[Request]:
         """Serve requests through ``slots`` concurrent decode lanes."""
@@ -164,12 +205,13 @@ def _check_prompt(req: Request, max_len: int) -> None:
                          f"{max_len}")
 
 
-def _merge_slot(old: KVState, new: KVState, slot: int) -> None:
-    """Write ``slot``'s lane of ``new`` (per-layer (1, S, Hk, D) caches)
-    into the batch state ``old``, in place; the other lanes stay as they
-    are. Lanes the step already wrote in place are skipped; a lane whose
-    dtype was promoted (``kv_update="onehot"`` with fp32 weights)
-    promotes the whole batch cache, as the reference's merge does."""
+def _merge_slot(old: DecodeState, new: DecodeState, slot: int) -> None:
+    """Write ``slot``'s lane of ``new`` (per-layer state dicts of (1, ...)
+    tensors) into the batch state ``old``, in place; the other lanes stay
+    as they are. Lanes the step already wrote in place are skipped; a
+    lane whose dtype was promoted (``kv_update="onehot"`` with fp32
+    weights) promotes the whole batch tensor, as the reference's merge
+    does."""
     for o, n in zip(old, new):
         for key, lane in n.items():
             full = o[key]

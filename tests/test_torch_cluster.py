@@ -205,9 +205,10 @@ def test_same_seed_same_bytes(fmt, tmp_path):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """A small port workload, a reduced-size serving run and a few steps
-    of the training entry point in a fresh interpreter leave ``jax`` and
-    every ``repro`` module out of ``sys.modules``. It imports
+    """A small port workload, a reduced-size serving run (Jamba: Mamba,
+    attention and MoE blocks) and a few steps of the training entry point
+    in a fresh interpreter leave ``jax`` and every ``repro`` module out of
+    ``sys.modules``. It imports
     ``repro_torch.faults`` first: unlike the reference's, the port's
     packages import in any order."""
     code = (
@@ -229,9 +230,10 @@ def test_port_imports_neither_jax_nor_repro():
         "assert all(e.matches is not None for e in ex)\n"
         "from repro_torch.configs import get, reduced\n"
         "from repro_torch.launch import serve\n"
+        "from repro_torch.models import moe, ssm\n"
         "from repro_torch.models.model import init_params\n"
         "from repro_torch.serve.engine import Request, ServingEngine\n"
-        "cfg = reduced(get('llama3.2-3b'))\n"
+        "cfg = reduced(get('jamba-1.5-large-398b'), n_periods=1)\n"
         "eng = ServingEngine(cfg, init_params(cfg, device='cpu'), slots=2, "
         "max_len=32, device='cpu')\n"
         "done = eng.run([Request(i, [1, 2, 3, 4 + i], max_new_tokens=2) "

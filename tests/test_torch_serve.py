@@ -29,7 +29,9 @@ from repro.serve.kvcache import PagedKVCacheManager as JManager  # noqa: E402
 from repro_torch.configs import get, reduced  # noqa: E402
 from repro_torch.launch import serve as tlaunch  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
-from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models.convert import (decode_state_from_numpy,  # noqa: E402
+                                        params_from_numpy)
 from repro_torch.serve import engine as tengine  # noqa: E402
 from repro_torch.serve.kvcache import PagedKVCacheManager as TManager  # noqa: E402
 
@@ -162,20 +164,115 @@ def test_engine_matches_across_archs(arch, kv_update):
 
 
 def test_prefill_replay_leaves_other_lanes_alone():
-    """Admitting a request replays its prompt on its own lane only: the
-    KV of a lane already decoding is unchanged, position 0 included."""
-    _, tcfg, _, tp = both("llama3.2-3b")
-    eng = tengine.ServingEngine(tcfg, tp, slots=2, max_len=16,
-                                device="cpu")
-    kv = tmodel.init_decode_state(tcfg, 2, 16, device="cpu")
-    state = {"kv": [{k: torch.randn_like(v.float()).to(v.dtype)
-                     for k, v in st.items()} for st in kv],
-             "next_logits": [None, None]}
-    before = [{k: v[1].clone() for k, v in st.items()} for st in state["kv"]]
-    eng._prefill_into_slot(state, 0, [5, 6, 7], start=0)
-    for st, old in zip(state["kv"], before):
-        for k in st:
-            assert torch.equal(st[k][1], old[k])
+    """Admitting a request leaves the state of a lane already decoding
+    unchanged, position 0 of its KV included: with dense MLPs the replay
+    runs on the admitted lane alone; with MoE layers (deepseek, and Jamba
+    with its Mamba states) it runs every lane, as the reference does, and
+    keeps only the admitted lane's new state."""
+    for arch, all_lanes in (("llama3.2-3b", False),
+                            ("deepseek-moe-16b", True),
+                            ("jamba-1.5-large-398b", True)):
+        _, tcfg, _, tp = both(arch)
+        eng = tengine.ServingEngine(tcfg, tp, slots=3, max_len=16,
+                                    device="cpu")
+        assert eng.all_lane_replay == all_lanes
+        gen = torch.Generator().manual_seed(4)
+        kv = tmodel.init_decode_state(tcfg, 3, 16, device="cpu")
+        state = {"kv": [{k: torch.randn(v.shape, generator=gen).to(v.dtype)
+                         for k, v in st.items()} for st in kv],
+                 "next_logits": [None] * 3}
+        before = [{k: v.clone() for k, v in st.items()}
+                  for st in state["kv"]]
+        calls = []
+        decode = eng._decode
+        eng._decode = lambda *a: calls.append(a[1].shape[0]) or decode(*a)
+        eng._prefill_into_slot(state, 1, [5, 6, 7], start=0)
+        assert calls == [3 if all_lanes else 1] * 3
+        for st, old in zip(state["kv"], before):
+            for k in st:
+                for lane in (0, 2):
+                    assert torch.equal(st[k][lane], old[k][lane]), (arch, k)
+                assert not torch.equal(st[k][1], old[k][1]), (arch, k)
+
+
+def moe_pair(capacity_factor=1.25, seed=5):
+    """(reference cfg, port cfg, reference params, port params): a
+    reduced deepseek (d_model 64, 8 experts top-2, vocab 256) at
+    ``capacity_factor``, fp32 weights (the routing is then the same on
+    both sides)."""
+    jcfg = jreduced(jget("deepseek-moe-16b"))
+    tcfg = reduced(get("deepseek-moe-16b"))
+    jcfg, tcfg = (dataclasses.replace(c, moe=dataclasses.replace(
+        c.moe, capacity_factor=capacity_factor)) for c in (jcfg, tcfg))
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(seed),
+                            dtype=jnp.float32)
+    tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def test_moe_prompt_replay_matches_reference(monkeypatch):
+    """The engines' prompt replay on the same state, compared state for
+    state: prompts replayed into slots 0, 2 and 1 of 4 lanes at
+    capacity_factor 1.25, where a step's capacity is 1 slot an expert.
+    The admitted lane queues behind the lower lanes' token-0 steps, so
+    some of its (token, k) are dropped; a replay on the admitted lane
+    alone drops none and gives another state."""
+    jcfg, tcfg, jp, tp = moe_pair()
+    kw = dict(slots=4, max_len=16, page_size=4, cache_budget_pages=16)
+    jeng = jengine.ServingEngine(jcfg, jp, **kw)
+    teng = tengine.ServingEngine(tcfg, tp, device="cpu", **kw)
+    jstate = {"kv": jmodel.init_decode_state(jcfg, 4, 16),
+              "next_logits": [None] * 4}
+    tstate = {"kv": tmodel.init_decode_state(tcfg, 4, 16, device="cpu"),
+              "next_logits": [None] * 4}
+    dropped = []
+    route = tmoe.route
+
+    def count(router, xt, cfg):
+        r = route(router, xt, cfg)
+        dropped.append(int((~r.keep).sum()))
+        return r
+
+    monkeypatch.setattr(tmoe, "route", count)
+    rng = np.random.default_rng(7)
+    for slot in (0, 2, 1):
+        prompt = rng.integers(1, 256, 6).tolist()
+        jeng._prefill_into_slot(jstate, slot, prompt, start=0)
+        teng._prefill_into_slot(tstate, slot, prompt, start=0)
+        want = decode_state_from_numpy(
+            tcfg, jax.tree.map(np.asarray, jstate["kv"]), device="cpu")
+        for layer, (got_st, want_st) in enumerate(zip(tstate["kv"], want)):
+            for k in got_st:
+                # The KV caches are bf16 on both sides: an fp32 value at a
+                # rounding boundary may land one bf16 ulp (2^-7) away.
+                rtol = 2 ** -7 if got_st[k].dtype == torch.bfloat16 else 1e-4
+                np.testing.assert_allclose(
+                    got_st[k].float().numpy(), want_st[k].float().numpy(),
+                    rtol=rtol, atol=1e-4, err_msg=f"{slot} {layer} {k}")
+    assert sum(dropped) > 0
+
+
+@pytest.mark.parametrize("slots", [2, 4])
+def test_moe_engine_matches_reference(slots):
+    """A reduced deepseek at its published capacity_factor 1.25, where a
+    decode step's capacity is max(1, int(1.25 * 2 * slots / 8)) = 1 slot
+    an expert and drops are common: the reference's prompt replay steps
+    every lane, so the other lanes' tokens decide which of the admitted
+    lane's are dropped. Both engines, fp32 weights (the routing is then
+    the same on both sides), give the same tokens and EngineStats."""
+    jcfg, tcfg, jp, tp = moe_pair()
+    rng = np.random.default_rng(6)
+    system = rng.integers(1, 256, 6).tolist()
+    prompts = [system + rng.integers(1, 256, int(n)).tolist()
+               for n in rng.integers(1, 5, 2 * slots + 1)]
+    kw = dict(slots=slots, max_len=24, page_size=4, cache_budget_pages=16)
+    jeng = jengine.ServingEngine(jcfg, jp, **kw)
+    teng = tengine.ServingEngine(tcfg, tp, device="cpu", **kw)
+    jreqs, treqs = twin_requests(prompts, 6)
+    jdone, tdone = jeng.run(jreqs), teng.run(treqs)
+    assert [(r.request_id, r.generated) for r in tdone] == \
+        [(r.request_id, r.generated) for r in jdone]
+    assert dataclasses.asdict(teng.stats) == dataclasses.asdict(jeng.stats)
 
 
 def test_malformed_prompts_raise():
@@ -225,6 +322,17 @@ def test_launcher_matches_reference(capsys):
     assert dataclasses.asdict(teng.stats) == dataclasses.asdict(jeng.stats)
     out = capsys.readouterr().out.splitlines()
     assert out[-1] == out[-2] and out[-1].startswith("served 8 requests")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-125m"])
+def test_launcher_serves_moe_and_ssm(arch):
+    """The launcher serves an MoE and an attention-free architecture (its
+    own random weights) with the reference launcher's counters."""
+    argv = ["--arch", arch, "--requests", "3"]
+    jeng = jlaunch.main(argv)
+    teng = tlaunch.main(argv + ["--device", "cpu"])
+    assert dataclasses.asdict(teng.stats) == dataclasses.asdict(jeng.stats)
+    assert teng.stats.requests == 3 and teng.stats.decode_steps > 0
 
 
 def test_engine_default_device_is_the_card():

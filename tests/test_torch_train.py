@@ -174,9 +174,12 @@ def test_global_norm_matches():
 
 
 def both(arch, seed=0, dtype="float32"):
-    """(jcfg, tcfg, reference params, port params) from one JAX init."""
-    jcfg = jreduced(jget(arch), d_model=32, n_periods=2, vocab=64)
-    tcfg = reduced(get(arch), d_model=32, n_periods=2, vocab=64)
+    """(jcfg, tcfg, reference params, port params) from one JAX init: two
+    periods, or one of Jamba's (its 8 layers hold every block kind)."""
+    kw = dict(d_model=32, vocab=64,
+              n_periods=1 if get(arch).period > 1 else 2)
+    jcfg = jreduced(jget(arch), **kw)
+    tcfg = reduced(get(arch), **kw)
     jp = jmodel.init_params(jcfg, jax.random.PRNGKey(seed),
                             dtype=getattr(jnp, dtype))
     return jcfg, tcfg, jp, params_from_numpy(
@@ -209,12 +212,22 @@ def port_layout(tcfg, jtree):
     return [(n, f32(t)) for n, t in named_leaves(conv)]
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama3.2-3b"])
-@pytest.mark.parametrize("attention_impl", ["naive", "blockwise"])
+# Jamba runs under one attention implementation: it has one attention
+# layer, and the reference's compile of its step is most of the test's
+# time (about 40 s a case on the CPU).
+TRAIN_STEP_CASES = [(impl, arch) for impl in ("naive", "blockwise")
+                    for arch in ("qwen1.5-0.5b", "llama3.2-3b",
+                                 "deepseek-moe-16b", "jamba-1.5-large-398b")
+                    if impl == "naive" or arch != "jamba-1.5-large-398b"]
+
+
+@pytest.mark.parametrize("attention_impl,arch", TRAIN_STEP_CASES)
 def test_train_step_matches(arch, attention_impl):
     """One train step from identical params, state and batch: the loss,
-    every gradient leaf, the gradient norm and the parameters after the
-    update (see the module docstring for the bounds)."""
+    the MoE aux loss, every gradient leaf (routers, expert stacks and the
+    Mamba leaves included), the gradient norm and the parameters after
+    the update, weight decay on (see the module docstring for the
+    bounds)."""
     jcfg, tcfg, jp, tp = both(arch, seed=3)
     jo, to = opt_pair(peak_lr=1e-3, warmup_steps=0, weight_decay=0.1)
     batch = make_batch(tcfg, 4)
@@ -227,6 +240,9 @@ def test_train_step_matches(arch, attention_impl):
     tmet, tgrads = tstep.value_and_grad(tp, lfn, as_t(batch))
     assert float(tmet["loss"]) == pytest.approx(float(jmet["loss"]),
                                                 rel=1e-5)
+    assert float(tmet["aux_loss"]) == pytest.approx(
+        float(jmet["aux_loss"]), rel=1e-5, abs=1e-7)
+    assert (float(jmet["aux_loss"]) > 0) == (tcfg.moe is not None)
     want = port_layout(tcfg, jgrads)
     assert [n for n, _ in want] == [n for n, _ in named_leaves(tp)]
     for (name, w), g in zip(want, tgrads):
@@ -496,3 +512,14 @@ def test_launcher_trains_and_resumes(tmp_path, capsys):
                                  str(tmp_path / "data2")])
     assert "restored step 6" in capsys.readouterr().out
     assert len(again["losses"]) == 2
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-125m"])
+def test_launcher_trains_moe_and_ssm(arch, tmp_path):
+    """The training entry point runs an MoE and an attention-free
+    architecture: finite losses from the pipeline's batches."""
+    out = tlaunch.main(["--device", "cpu", "--arch", arch, "--d-model",
+                        "32", "--periods", "1", "--batch", "2", "--seq",
+                        "16", "--vocab", "64", "--steps", "3",
+                        "--data-dir", str(tmp_path / "data")])
+    assert len(out["losses"]) == 3 and np.all(np.isfinite(out["losses"]))
