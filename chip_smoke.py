@@ -143,11 +143,26 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
  20. jamba   — Jamba reduced to 8 layers (d_model 512, 7 Mamba + 1
                attention, MoE every other layer, capacity_factor 1.25):
                prefill on B 2 x S 4096 and the engine, each as in 15 and
-               16.
+               16;
+ 21. launch-train — llama3.2-3b at full width and depth trained through
+               ``repro_torch.launch.train``'s placement code on a (1, 1)
+               NCCL mesh: parameters, AdamW moments and batches are
+               DTensors, the flash kernels run on each rank's local
+               shards through ``local_map``. 1 warm-up and 3 timed steps
+               on the batches of phase 12; launch counts set to 0 before
+               and read after; losses and grad norms equal the unplaced
+               steps' bit for bit (phase 12's, or the same steps run
+               here when the train group is not run);
+ 22. launch-roofline — the host's cost of one kernel launch (a stream of
+               tiny ops timed with the host clock and CUDA events), then
+               the dry-run's analyzer on the same cell (fake tensors, a
+               one-rank fake mesh, the H100 model): its roofline terms
+               beside the measured step, the compute and memory terms
+               each at most the measured step.
 
 ``--phases`` runs some groups of these (join: 2-6, attn: 7-10, train:
-11-14, moe: 15-18, ssm: 19, jamba: 20; the build and device lines
-always); the default is all of them.
+11-14, moe: 15-18, ssm: 19, jamba: 20, launch: 21-22; the build and
+device lines always); the default is all of them.
 
 Prints the kernels' JSON record and the card's name and power limit on
 the two lines before the last, and ``{"ok": true, "device": ...}`` last.
@@ -169,6 +184,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -212,7 +228,7 @@ from repro_torch.train.train_step import (  # noqa: E402
 from repro_torch.train.tree import leaves, named_leaves, tree_map  # noqa: E402
 
 # The phases in groups, in the order they run; ``--phases`` picks some.
-PHASE_GROUPS = ("join", "attn", "train", "moe", "ssm", "jamba")
+PHASE_GROUPS = ("join", "attn", "train", "moe", "ssm", "jamba", "launch")
 N_NODES = 8
 KERNEL_SRC = "src/repro_torch/kernels/simjoin/simjoin.cu"
 SOURCES = {
@@ -306,6 +322,9 @@ AUTOGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # run prints the floor beside them: the plain step with the backward of
 # attention_bwd_ref against the plain step with autograd through
 # attention_ref, which share their forward.
+# The unplaced train phase's timed steps (losses, grad norms, median
+# step), which the launch-train phase holds the mesh-placed steps to.
+TRAIN_RUN: dict = {}
 TRAIN_LOSS_REL = 1e-3
 TRAIN_GNORM_REL = 3e-2
 TRAIN_LEAF_REL_L2 = 0.1
@@ -1691,7 +1710,7 @@ def phase_train(dev, root, seed):
     step = make_train_step(cfg, opt_cfg, remat=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, walls, data_s = [], [], 0.0
+    losses, gnorms, walls, data_s = [], [], [], 0.0
     zero_launches()
     for _ in range(TRAIN_STEPS):
         t = time.perf_counter()
@@ -1701,6 +1720,7 @@ def phase_train(dev, root, seed):
         params, opt_state, metrics = step(params, opt_state, batch)
         losses.append(float(metrics["loss"]))   # synchronizes
         walls.append(time.perf_counter() - t)
+        gnorms.append(float(metrics["grad_norm"]))
     launches = {name: flash.LAUNCHES[name] for name in flash.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
@@ -1712,6 +1732,7 @@ def phase_train(dev, root, seed):
                              f"{paged.LAUNCHES['paged_attention']}, losses "
                              f"{losses}")
     med = float(np.median(walls[1:]))
+    TRAIN_RUN.update(losses=losses, grad_norms=gnorms, median_s=med)
     tokens = TRAIN_B * TRAIN_S
     live = TRAIN_B * cfg.n_heads * TRAIN_S * (TRAIN_S + 1) // 2
     model_flops = 6 * n_params * tokens
@@ -2776,6 +2797,197 @@ def phase_jamba(dev):
     return launches
 
 
+# ------------------------------------------------------------- launch --
+
+# Launches in the host-cost stream, and its repeats.
+HOST_STREAM, HOST_REPEATS = 20_000, 5
+
+
+def launch_steps(dev, root, seed, mesh=None):
+    """The train phase's timed steps again: its pipeline from ``seed``
+    with the gradient check's batch skipped, parameters from ``seed``,
+    the same optimizer and ``make_train_step(remat=True)``. With a
+    ``mesh`` the parameters, moments and batches are placed by
+    ``repro_torch.launch.train`` and the step runs under
+    ``implicit_replication``. Returns losses, grad norms, step walls and
+    the launches of the steps (counts set to 0 just before them)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import train as launcher
+    from repro_torch.sharding.partition import make_policy
+    cfg = get_config(ARCH)
+    pipeline = train_pipeline(root, cfg.vocab_size, seed)
+    pipeline.next_batch()
+    opt_cfg = OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
+                              total_steps=TRAIN_STEPS + 1)
+    if mesh is None:
+        params = init_params(cfg, seed=seed, device=dev)
+        opt_state = adamw_init(params, opt_cfg)
+    else:
+        policy = make_policy(cfg, mesh)
+        params, opt_state = launcher.placed_state(cfg, opt_cfg, seed, mesh,
+                                                  policy)
+    step = make_train_step(cfg, opt_cfg, remat=True)
+    torch.cuda.synchronize()
+    losses, gnorms, walls = [], [], []
+    zero_launches()
+    for _ in range(TRAIN_STEPS):
+        batch = on_card(pipeline.next_batch(), dev)
+        t = time.perf_counter()
+        if mesh is None:
+            params, opt_state, metrics = step(params, opt_state, batch)
+        else:
+            batch = launcher.place_batch(batch, mesh, policy)
+            with implicit_replication():
+                params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(launcher.scalar(metrics["loss"]))   # synchronizes
+        walls.append(time.perf_counter() - t)
+        gnorms.append(launcher.scalar(metrics["grad_norm"]))
+    launches = {name: flash.LAUNCHES[name] for name in flash.LAUNCHES}
+    kinds = (type(leaves(params)[0]).__name__,
+             type(leaves(opt_state["m"])[0]).__name__)
+    del params, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, gnorms, walls, launches, kinds
+
+
+def phase_launch_train(dev, root, seed):
+    """llama3.2-3b trained through the launcher's placement on the (1, 1)
+    NCCL mesh; held bit for bit to the unplaced steps. Returns the
+    launches and the median placed step."""
+    label = card_label()
+    cfg = get_config(ARCH)
+    if TRAIN_RUN:
+        ref = dict(TRAIN_RUN, source="phase train")
+    else:
+        losses, gnorms, walls, _, _ = launch_steps(dev, root / "unplaced",
+                                                   seed)
+        ref = dict(losses=losses, grad_norms=gnorms,
+                   median_s=float(np.median(walls[1:])),
+                   source="unplaced steps run here")
+    t0 = time.perf_counter()
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device=dev)
+    mesh_s = time.perf_counter() - t0
+    losses, gnorms, walls, launches, kinds = launch_steps(
+        dev, root / "placed", seed, mesh)
+    want = {"flash_attention_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    if launches != want or paged.LAUNCHES["paged_attention"]:
+        raise AssertionError(f"launch-train: launches {launches} (want "
+                             f"{want}), paged "
+                             f"{paged.LAUNCHES['paged_attention']}")
+    if kinds != ("DTensor", "DTensor"):
+        raise AssertionError(f"launch-train: parameters and moments are "
+                             f"{kinds}, not DTensors")
+    if losses != ref["losses"] or gnorms != ref["grad_norms"]:
+        raise AssertionError(
+            f"launch-train: placed losses {losses} and grad norms {gnorms} "
+            f"differ from the unplaced {ref['losses']} and "
+            f"{ref['grad_norms']} ({ref['source']})")
+    med = float(np.median(walls[1:]))
+    log(f"launch-train: {ARCH} at full width and depth on a "
+        f"{tuple(mesh.shape)} {dist.get_backend()} mesh "
+        f"{mesh.mesh_dim_names} (made in {mesh_s:.3f} s), parameters and "
+        f"moments {kinds[0]}s, B={TRAIN_B} S={TRAIN_S}, 1 warm-up + "
+        f"{TRAIN_STEPS - 1} timed steps: losses {losses} and grad norms "
+        f"{gnorms} equal the unplaced steps' bit for bit ({ref['source']});"
+        f" launches {launches}; step walls {[round(w, 6) for w in walls]} "
+        f"s, median {med:.6f} s against the unplaced {ref['median_s']:.6f} "
+        f"s: DTensor's host cost on one card {med - ref['median_s']:.6f} s "
+        f"a step ({med / ref['median_s']:.4f} x) [{label}]")
+    return launches, med
+
+
+def host_launch_cost(dev):
+    """(host s, device s) per launch of a stream of HOST_STREAM tiny
+    in-place adds, the medians of HOST_REPEATS repeats: the host clock
+    around the enqueue, CUDA events around the device's work."""
+    x = torch.zeros(1, device=dev)
+    for _ in range(1000):
+        x.add_(1)
+    torch.cuda.synchronize()
+    host, device = [], []
+    for _ in range(HOST_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t = time.perf_counter()
+        for _ in range(HOST_STREAM):
+            x.add_(1)
+        host.append((time.perf_counter() - t) / HOST_STREAM)
+        end.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end) / 1e3 / HOST_STREAM)
+    return float(np.median(host)), float(np.median(device))
+
+
+def phase_launch_roofline(dev, measured_s):
+    """The per-launch host cost, then the analyzer's roofline of the
+    launch-train cell on a one-rank fake mesh, held below the measured
+    step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape, mesh_over_group
+    from repro_torch.launch.op_analysis import OpAnalyzer
+    from repro_torch.launch.roofline import H100, build_report, format_row
+    from repro_torch.sharding.partition import axis_sizes
+    label = card_label()
+    host_s, device_s = host_launch_cost(dev)
+    log(f"launch-roofline: host cost of one launch {host_s * 1e6:.4f} us "
+        f"(host clock over {HOST_STREAM} tiny adds, median of "
+        f"{HOST_REPEATS}), the device's time a launch "
+        f"{device_s * 1e6:.4f} us (CUDA events); roofline.H100.loop_latency "
+        f"{H100.loop_latency * 1e6:.4f} us [{label}]")
+    dist.destroy_process_group()      # the launch-train NCCL group
+    dryrun.fake_world(1)
+    mesh = mesh_over_group(MeshShape(("data", "model"), (1, 1)))
+    cfg = get_config(ARCH)
+    shape = ShapeConfig(f"train_b{TRAIN_B}_s{TRAIN_S}", "train", TRAIN_S,
+                        TRAIN_B)
+    analyzer = OpAnalyzer(mesh)
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        ma = dryrun.lower_cell(cfg, shape, mesh, analyzer)
+    lower_s = time.perf_counter() - t0
+    hw = dataclasses.replace(H100, loop_latency=host_s)
+    rep = build_report(ARCH, shape, "1x1", 1, analyzer.cost, cfg, hw=hw,
+                       axis_sizes=axis_sizes(mesh))
+    dist.destroy_process_group()
+    log(f"launch-roofline: {format_row(rep)}")
+    log(f"launch-roofline: per chip {rep.flops_per_chip:.6e} flops, "
+        f"{rep.bytes_per_chip:.6e} bytes, {rep.seq_iters:.0f} launches, "
+        f"{rep.coll_bytes_per_chip:.6e} collective bytes; terms compute "
+        f"{rep.compute_s:.6f} s, memory {rep.memory_s:.6f} s, collective "
+        f"{rep.collective_s:.6f} s, serial {rep.serial_s:.6f} s; "
+        f"bottleneck {rep.bottleneck}, useful_ratio {rep.useful_ratio:.6f},"
+        f" roofline_fraction {rep.roofline_fraction:.6f}; roofline step "
+        f"{rep.step_time_s:.6f} s, measured median step {measured_s:.6f} s "
+        f"= {measured_s / rep.step_time_s:.4f} x the roofline; argument "
+        f"bytes {ma['argument_bytes']}; analysis {lower_s:.2f} s on the "
+        f"host [{label}]")
+    if not (rep.compute_s <= measured_s and rep.memory_s <= measured_s):
+        raise AssertionError(
+            f"launch-roofline: a roofline term above the measured step "
+            f"{measured_s} s: compute {rep.compute_s} s, memory "
+            f"{rep.memory_s} s (the count is wrong)")
+    return rep
+
+
+def phase_launch(dev, seed):
+    """The launch group: launch-train, then launch-roofline. It runs last
+    and imports the launch layer itself: ``torch.distributed.tensor``
+    slows the eager dispatch of plain tensors once imported
+    (``repro_torch.sharding.local``), and the other groups time
+    host-bound steps."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+        launches, med = timed("launch-train", phase_launch_train, dev,
+                              Path(tmp), seed)
+    timed("launch-roofline", phase_launch_roofline, dev, med)
+    return launches
+
+
 def main(argv=None) -> int:
     """Run every phase; any failure raises and exits non-zero."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2875,8 +3087,12 @@ def main(argv=None) -> int:
             timed("ssm", phase_ssm, dev, Path(tmp), args.seed)
     if "jamba" in groups:
         slice7.update(phase_jamba(dev))
+    launch = timed("group launch", phase_launch, dev, args.seed) \
+        if "launch" in groups else {}
     for row in record:
         add_slice7(row, slice7, mha if "moe" in groups else {})
+        if launch.get(row["name"]):
+            row["launch_train_launches"] = launch[row["name"]]
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": record}))
     print(card_label())

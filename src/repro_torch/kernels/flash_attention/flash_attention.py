@@ -15,7 +15,10 @@ keep the reference's fp32 tolerance that TF32 would not).
 counts the launch in :data:`LAUNCHES` (both kernels under one name); for
 CPU tensors, or under ``impl="plain"``, it runs the plain version
 :func:`ref.attention_ref`. With ``return_lse`` it also returns each
-row's logsumexp, which the backward reads.
+row's logsumexp, which the backward reads. Both directions are custom
+ops (``torch.ops.repro_torch.flash_attention_fwd`` / ``_bwd``), so a
+dispatch mode or a fake tensor sees each call as one op; plain tensors
+take the ops' kernels directly (``_tensors.run_op``).
 
 :func:`flash_attention_bwd` is the backward: the kernels of
 ``flash_attention_bwd.cu`` (no Pallas counterpart: they replace the
@@ -38,12 +41,12 @@ from __future__ import annotations
 
 import math
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels._build import CudaLibrary
-from repro_torch.kernels._tensors import aligned16
+from repro_torch.kernels._tensors import aligned16, run_op
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 
@@ -107,18 +110,18 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{k.device}, {v.device}")
 
 
-def _use_kernel(t: torch.Tensor, impl: str) -> bool:
-    """True when the wrapper must launch the CUDA kernel: a CUDA tensor
-    under ``impl="kernel"``. CPU tensors take the plain version; any
-    other device raises."""
+def _check_impl(impl: str) -> None:
+    """Raise for an unknown ``impl``."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; known: {IMPLS}")
-    if t.device.type == "cuda":
-        return impl == "kernel"
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"flash attention runs on cuda or cpu tensors, not "
-                     f"{t.device}")
+
+
+def _on_cpu(t: torch.Tensor) -> None:
+    """The ops' default kernel serves CPU tensors (the plain version);
+    any device but the CPU and CUDA raises."""
+    if t.device.type != "cpu":
+        raise ValueError(f"flash attention runs on cuda or cpu tensors, not "
+                         f"{t.device}")
 
 
 def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -148,32 +151,74 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     == 0 and Sk % bk == 0 (``ops`` pads). Returns (B, H, Sq, D) in q's
     dtype. With ``causal``, query i sees keys j <= i + q_offset. With
     ``return_lse``, returns ``(out, lse)``: lse (B, H, Sq) fp32 is each
-    row's natural-log logsumexp of the scaled, masked scores."""
+    row's natural-log logsumexp of the scaled, masked scores.
+
+    ``impl="kernel"`` runs the op ``repro_torch::flash_attention_fwd``
+    (``_tensors.run_op``): the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors, empty outputs of the right shapes for fake
+    tensors (so a dry-run sees one op; ``launch.op_analysis`` charges it
+    the kernel's work). A ``DTensor`` raises there (the op has no
+    sharding rule): callers pass local shards, through ``local_map``."""
     _check_shapes(q, k, v, bq, bk, q_offset)
-    if not _use_kernel(q, impl):
+    _check_impl(impl)
+    if impl == "plain":
         return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                              return_lse=return_lse)
+    out, lse = run_op(torch.ops.repro_torch.flash_attention_fwd, _fwd_cuda,
+                      _fwd_cpu, q, k, v, bool(causal), int(q_offset),
+                      bool(return_lse))
+    return (out, lse) if return_lse else out
+
+
+def _fwd_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            q_offset: int, return_lse: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op's default kernel, for CPU tensors: the plain version
+    (``lse`` empty unless asked for)."""
+    _on_cpu(q)
+    if return_lse:
+        return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                             return_lse=True)
+    out = attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    return out, q.new_empty((0,), dtype=torch.float32)
+
+
+_fwd_op = torch.library.custom_op("repro_torch::flash_attention_fwd",
+                                  _fwd_cpu, mutates_args=())
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, causal, q_offset, return_lse):
+    """Outputs of the right shapes and dtypes, nothing computed."""
+    b, h, sq, _ = q.shape
+    return torch.empty_like(q), q.new_empty(
+        (b, h, sq) if return_lse else (0,), dtype=torch.float32)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_cuda(q, k, v, causal, q_offset, return_lse):
+    """Launch the forward kernel on CUDA tensors."""
     _check_kernel_inputs(q, k, v)
     b, h, sq, d = q.shape
     _, hk, sk, _ = k.shape
     q, k, v = (aligned16(x.contiguous()) for x in (q, k, v))
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
-        if return_lse else None
+    lse = torch.empty((b, h, sq) if return_lse else (0,),
+                      dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return (out, lse) if return_lse else out
+        return out, lse
     lib = LIBRARY.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    out.data_ptr(),
-                                   None if lse is None else lse.data_ptr(),
+                                   lse.data_ptr() if return_lse else None,
                                    _DTYPES[q.dtype], b, h, hk, sq, sk, d,
                                    int(bool(causal)), int(q_offset),
                                    1.0 / math.sqrt(d), stream)
     LIBRARY.check(err, "flash_attention_fwd")
     LAUNCHES["flash_attention_fwd"] += 1
-    return (out, lse) if return_lse else out
+    return out, lse
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -183,23 +228,55 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients (dq, dk, dv) of :func:`flash_attention_fwd` from its
     ``out`` and ``lse``: q, out, dout (B, H, Sq, D); k, v (B, Hk, Sk, D);
     lse (B, H, Sq) fp32. dq has q's shape and dtype, dk and dv k's (summed
-    over each kv head's group of query heads). The CUDA kernels for CUDA
-    tensors under ``impl="kernel"``, else :func:`ref.attention_bwd_ref`;
-    both compute in fp32, and the kernels give the same bits from run to
-    run (no atomics)."""
+    over each kv head's group of query heads). ``impl="kernel"`` runs
+    the op ``repro_torch::flash_attention_bwd`` (the CUDA kernels for
+    CUDA tensors, :func:`ref.attention_bwd_ref` for CPU tensors, shapes
+    alone for fake ones); ``"plain"`` runs the plain version. Both
+    compute in fp32, and the kernels give the same bits from run to run
+    (no atomics)."""
     _check_shapes(q, k, v, 1, 1, q_offset)
     b, h, sq, d = q.shape
-    _, hk, sk, _ = k.shape
     if out.shape != q.shape or dout.shape != q.shape or \
             tuple(lse.shape) != (b, h, sq):
         raise ValueError(f"out {tuple(out.shape)} and dout "
                          f"{tuple(dout.shape)} must be q's shape "
                          f"{tuple(q.shape)}, lse {tuple(lse.shape)} must be "
                          f"{(b, h, sq)}")
-    if not _use_kernel(q, impl):
+    _check_impl(impl)
+    if impl == "plain":
         return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
                                  q_offset=q_offset)
+    return run_op(torch.ops.repro_torch.flash_attention_bwd, _bwd_cuda,
+                  _bwd_cpu, q, k, v, out, lse, dout, bool(causal),
+                  int(q_offset))
+
+
+def _bwd_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+            causal: bool, q_offset: int
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op's default kernel, for CPU tensors: the plain version."""
+    _on_cpu(q)
+    return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                             q_offset=q_offset)
+
+
+_bwd_op = torch.library.custom_op("repro_torch::flash_attention_bwd",
+                                  _bwd_cpu, mutates_args=())
+
+
+@_bwd_op.register_fake
+def _bwd_fake(q, k, v, out, lse, dout, causal, q_offset):
+    """Gradients of the right shapes and dtypes, nothing computed."""
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@_bwd_op.register_kernel("cuda")
+def _bwd_cuda(q, k, v, out, lse, dout, causal, q_offset):
+    """Launch the backward kernels on CUDA tensors."""
     _check_kernel_inputs(q, k, v)
+    b, h, sq, d = q.shape
+    _, hk, sk, _ = k.shape
     if out.dtype != q.dtype or dout.dtype != q.dtype or \
             lse.dtype != torch.float32:
         raise TypeError(f"out and dout must be q's dtype {q.dtype} and lse "

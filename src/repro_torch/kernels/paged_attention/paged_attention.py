@@ -33,7 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels._build import CudaLibrary
-from repro_torch.kernels._tensors import aligned16
+from repro_torch.kernels._tensors import aligned16, run_op
 from repro_torch.kernels.paged_attention.ref import (NEG_INF,
                                                      paged_attention_ref)
 
@@ -103,18 +103,10 @@ def _check_inputs(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"inputs on different devices: {devs}")
 
 
-def _use_kernel(t: torch.Tensor, impl: str) -> bool:
-    """True when the wrapper must launch the CUDA kernel: a CUDA tensor
-    under ``impl="kernel"``. CPU tensors take the plain version; any
-    other device raises."""
+def _check_impl(impl: str) -> None:
+    """Raise for an unknown ``impl``."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; known: {IMPLS}")
-    if t.device.type == "cuda":
-        return impl == "kernel"
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"paged attention runs on cuda or cpu tensors, not "
-                     f"{t.device}")
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -126,12 +118,44 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     page of the pool: they are masked by seq_lens); seq_lens: (B,)
     integers. Returns (B, H, D) in q's dtype.
 
-    :func:`split_count` picks how many CTAs split each request's
+    ``impl="kernel"`` runs the op ``repro_torch::paged_attention``
+    (``_tensors.run_op``): the CUDA kernel for CUDA tensors, the plain version for CPU tensors, an
+    empty output for fake tensors (a dry-run sees one op). A ``DTensor``
+    raises there (the op has no sharding rule): callers pass local
+    shards. :func:`split_count` picks how many CTAs split each request's
     positions, each taking at least :data:`MIN_SPLIT_LEN` of them; the
     result does not depend on the count."""
     _check_inputs(q, k_pages, v_pages, page_table, seq_lens)
-    if not _use_kernel(q, impl):
+    _check_impl(impl)
+    if impl == "plain":
         return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens)
+    return run_op(torch.ops.repro_torch.paged_attention, _paged_cuda,
+                  _paged_cpu, q, k_pages, v_pages, page_table, seq_lens)
+
+
+def _paged_cpu(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+              page_table: torch.Tensor, seq_lens: torch.Tensor
+              ) -> torch.Tensor:
+    """The op's default kernel, for CPU tensors: the plain version."""
+    if q.device.type != "cpu":
+        raise ValueError(f"paged attention runs on cuda or cpu tensors, not "
+                         f"{q.device}")
+    return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens)
+
+
+_paged_op = torch.library.custom_op("repro_torch::paged_attention",
+                                    _paged_cpu, mutates_args=())
+
+
+@_paged_op.register_fake
+def _paged_fake(q, k_pages, v_pages, page_table, seq_lens):
+    """An output of q's shape and dtype, nothing computed."""
+    return torch.empty_like(q)
+
+
+@_paged_op.register_kernel("cuda")
+def _paged_cuda(q, k_pages, v_pages, page_table, seq_lens):
+    """Check what the kernel takes, then launch it on CUDA tensors."""
     b, h, d = q.shape
     n_pages, ps, hk, _ = k_pages.shape
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \

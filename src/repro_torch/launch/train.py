@@ -1,12 +1,18 @@
 """Training launcher: the end-to-end entry point that wires the raw-array
-cached data pipeline, the model, AdamW, async checkpointing and resume
-together.
+cached data pipeline, the sharded model, AdamW, async checkpointing and
+resume together.
 
-The port of ``repro/launch/train.py``, on one device: the model is not
-sharded (``sharding/partition.py`` and ``launch/mesh.py`` are later
-slices of the port), so ``--scale full`` trains the full configuration
-on the one card. ``--device`` (default ``cuda``) picks the device;
-``cpu`` runs the kernels' plain versions.
+The port of ``repro/launch/train.py``. Parameters, AdamW moments and
+batches are ``DTensor``s on the mesh of the devices this job has
+(``launch.mesh.make_host_mesh``: ``(1, 1)`` on one card, over a
+one-rank NCCL group), placed by the sharding rules
+(:func:`place_params`, :func:`place_batch`); the attention kernels run
+on each rank's local shards. The reference builds the 256-chip
+production mesh for ``--scale full``; this machine is not a pod, so
+``--scale full`` trains the full configuration on the host mesh, and
+the production meshes are reached by the dry-run
+(``repro_torch.launch.dryrun``). ``--device`` (default ``cuda``) picks
+the device; ``cpu`` runs the kernels' plain versions over gloo.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch qwen1.5-0.5b --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
@@ -18,15 +24,51 @@ import tempfile
 import time
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs import get, list_archs, reduced
+from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import build_pipeline
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.model import init_params, resolve_device
+from repro_torch.sharding.local import is_dtensor
+from repro_torch.sharding.partition import (ShardingPolicy, batch_spec,
+                                            make_policy, param_specs, place,
+                                            place_tree)
 from repro_torch.train.checkpoint import (AsyncCheckpointer,
                                           latest_checkpoint,
                                           restore_checkpoint)
 from repro_torch.train.optimizer import OptimizerConfig, adamw_init
 from repro_torch.train.train_step import make_train_step
+from repro_torch.train.tree import Tree
+
+
+def place_params(params: Tree, mesh, policy: ShardingPolicy) -> Tree:
+    """The parameters as ``DTensor``s on ``mesh``, placed by
+    ``param_specs`` (the reference's ``param_shardings`` +
+    ``device_put``)."""
+    return place_tree(params, param_specs(params, mesh, policy), mesh)
+
+
+def place_batch(batch: dict, mesh, policy: ShardingPolicy) -> dict:
+    """Each batch field as a ``DTensor`` on ``mesh``, its batch dim over
+    the DP axes by ``batch_spec``."""
+    return {k: place(v, batch_spec(mesh, policy, v.shape[0], v.ndim - 1),
+                     mesh) for k, v in batch.items()}
+
+
+def scalar(x) -> float:
+    """A metric (plain or ``DTensor``) as a Python float."""
+    return float(x.full_tensor() if is_dtensor(x) else x)
+
+
+def placed_state(cfg: ModelConfig, opt_cfg: OptimizerConfig, seed: int,
+                 mesh, policy: ShardingPolicy):
+    """Parameters from ``seed`` on ``mesh``'s device type, placed, and
+    their AdamW state (moments placed like them)."""
+    params = place_params(init_params(cfg, seed=seed,
+                                      device=mesh.device_type), mesh, policy)
+    return params, adamw_init(params, opt_cfg)
 
 
 def main(argv=None) -> dict:
@@ -70,8 +112,9 @@ def main(argv=None) -> dict:
 
     opt_cfg = OptimizerConfig(peak_lr=args.lr, warmup_steps=10,
                               total_steps=args.steps)
-    params = init_params(cfg, seed=args.seed, device=dev)
-    opt_state = adamw_init(params, opt_cfg)
+    mesh = make_host_mesh(device=dev)
+    policy = make_policy(cfg, mesh)
+    params, opt_state = placed_state(cfg, opt_cfg, args.seed, mesh, policy)
     step_fn = make_train_step(cfg, opt_cfg, n_microbatches=args.microbatches)
 
     start = 0
@@ -91,14 +134,16 @@ def main(argv=None) -> dict:
     t0 = time.time()
     for step in range(start, args.steps):
         batch = pipeline.next_batch()
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        losses.append(float(metrics["loss"]))
+        batch = place_batch({k: torch.from_numpy(v).to(dev)
+                             for k, v in batch.items()}, mesh, policy)
+        with implicit_replication():
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+        losses.append(scalar(metrics["loss"]))
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.time() - t0
             print(f"step {step:5d} loss {losses[-1]:.4f} "
-                  f"lr {float(metrics['lr']):.2e} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"lr {scalar(metrics['lr']):.2e} "
+                  f"gnorm {scalar(metrics['grad_norm']):.3f} "
                   f"({dt:.1f}s)")
         if ckpt and (step + 1) % args.ckpt_every == 0:
             ckpt.save(step + 1, {"params": params, "opt": opt_state},

@@ -15,6 +15,14 @@ kernels' plain versions instead (on the card, for checking).
 The decode cache is updated in place under ``kv_update="scatter"`` (the
 reference's donated-buffer scatter); ``"onehot"`` keeps the reference's
 full-cache blend and returns new tensors.
+
+On a device mesh (``DTensor`` activations) the two kernels run on each
+rank's local shards through ``local_map``: heads over the ``model``
+axis when the query and KV head counts both divide by it (else
+replicated there), batch rows as the activations hold them. A decode
+cache that is sequence-sharded (the reference's ``decode_state_specs``)
+is redistributed to that layout for the call, and the updated cache
+comes back in it (a new ``DTensor``, not written in place).
 """
 from __future__ import annotations
 
@@ -28,6 +36,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.models.layers import (Params, matmul, normal, rope_tables,
                                        rotate)
+from repro_torch.sharding.local import (as_dtensor, batch_only,
+                                        head_placements, is_dtensor,
+                                        on_local_shards, split_heads)
 
 NEG_INF = -1e30
 
@@ -77,10 +88,9 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    B, S = x.shape[:2]
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_heads(q, cfg.n_heads, hd)
+    k = split_heads(k, cfg.n_kv_heads, hd)
+    v = split_heads(v, cfg.n_kv_heads, hd)
     return q, k, v
 
 
@@ -125,6 +135,24 @@ def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            impl=impl)
 
 
+def _on_heads(core, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """``core(q, k, v)`` of (B, S, H, D) q and (B, S, Hk, D) k, v, its
+    heads merged: (B, S, H * D). On ``DTensor``s it runs on each rank's
+    whole heads and batch rows (``local_map``, all three placed by q's
+    batch sharding), the heads merged there too: a head dim that does
+    not divide by the model axis cannot be split or merged at the
+    DTensor level."""
+    def merged(q, k, v):
+        out = core(q, k, v)
+        return out.reshape(*out.shape[:2], -1)
+
+    if not is_dtensor(q):
+        return merged(q, k, v)
+    pq = head_placements(q, 2, (q.shape[2], k.shape[2]))
+    return on_local_shards(merged, q, (pq, pq, pq), pq)(q, k, v)
+
+
 def attention_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                       positions: torch.Tensor, causal: bool,
                       impl: str = "auto",
@@ -143,14 +171,15 @@ def attention_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     if impl == "auto":
         impl = "naive" if S <= 2048 else "blockwise"
     if impl == "naive":
-        out = _naive_attention(q, _expand_kv(k, cfg.n_heads),
-                               _expand_kv(v, cfg.n_heads), causal)
+        def core(q, k, v):
+            return _naive_attention(q, _expand_kv(k, q.shape[2]),
+                                    _expand_kv(v, q.shape[2]), causal)
     elif impl == "blockwise":
-        out = _blockwise_attention(q, k, v, causal, kernel_impl)
+        def core(q, k, v):
+            return _blockwise_attention(q, k, v, causal, kernel_impl)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    B, S_, H, D = out.shape
-    return matmul(out.reshape(B, S_, H * D), params["wo"])
+    return matmul(_on_heads(core, q, k, v), params["wo"])
 
 
 def page_size_for(max_len: int) -> int:
@@ -186,15 +215,31 @@ def decode_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
     if rope is None:
         rope = rope_tables(pos[:, None], hd, cfg.rope_theta)
     q, k_new = rotate(q, rope), rotate(k_new, rope)
+    if is_dtensor(q):
+        return _decode_on_mesh(params, q, k_new, v_new, kv_cache, pos, cfg,
+                               impl, page_size, x.dtype)
+    out, k_cache, v_cache = _decode_core(q, k_new, v_new, kv_cache["k"],
+                                         kv_cache["v"], pos, cfg, impl,
+                                         page_size)
+    return matmul(out.to(x.dtype).reshape(B, 1, cfg.n_heads * hd),
+                  params["wo"]), {"k": k_cache, "v": v_cache}
+
+
+def _decode_core(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 pos: torch.Tensor, cfg: ModelConfig, impl: str,
+                 page_size: Optional[int]):
+    """The cache update and the paged kernel on plain (or local)
+    tensors: (out (B, H, Dh) in the kernel's dtype, k cache, v cache)."""
+    B, hd = q.shape[0], q.shape[-1]
     kv_update = getattr(cfg, "kv_update", "scatter")
     if kv_update == "onehot":
         # The reference's pre-hillclimb baseline: the one-hot blend reads
         # and rewrites the entire cache every token.
-        k_cache = _scatter_kv(kv_cache["k"], k_new, pos)
-        v_cache = _scatter_kv(kv_cache["v"], v_new, pos)
+        k_cache = _scatter_kv(k_cache, k_new, pos)
+        v_cache = _scatter_kv(v_cache, v_new, pos)
     else:
-        b_idx = torch.arange(B, device=x.device)
-        k_cache, v_cache = kv_cache["k"], kv_cache["v"]
+        b_idx = torch.arange(B, device=q.device)
         k_cache[b_idx, pos.long()] = k_new[:, 0].to(k_cache.dtype)
         v_cache[b_idx, pos.long()] = v_new[:, 0].to(v_cache.dtype)
     S_max, Hk = k_cache.shape[1], k_cache.shape[2]
@@ -202,7 +247,7 @@ def decode_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
     if S_max % ps:
         raise ValueError(f"page size {ps} does not divide S_max={S_max}")
     n_pg = S_max // ps
-    table = _page_table(B, n_pg, x.device)
+    table = _page_table(B, n_pg, q.device)
     k_pages = k_cache.reshape(B * n_pg, ps, Hk, hd)
     v_pages = v_cache.reshape(B * n_pg, ps, Hk, hd)
     # The paged kernel works in one dtype: q joins the cache's (the
@@ -211,7 +256,28 @@ def decode_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
     out = paged_decode_attention(q[:, 0].to(dt), k_pages.to(dt),
                                  v_pages.to(dt), table,
                                  (pos + 1).to(torch.int32), impl=impl)
-    out = out.to(x.dtype).reshape(B, 1, cfg.n_heads * hd)
+    return out, k_cache, v_cache
+
+
+def _decode_on_mesh(params: Params, q, k_new, v_new, kv_cache, pos, cfg,
+                    impl, page_size, dtype):
+    """:func:`decode_attention` on ``DTensor``s: the cache update and the
+    paged kernel on each rank's whole heads and batch rows
+    (:func:`_decode_core` under ``local_map``); the caches come back in
+    that layout. Every input takes the cache's batch sharding."""
+    ph = head_placements(kv_cache["k"], 2, (q.shape[2], k_new.shape[2]))
+    pb = batch_only(kv_cache["k"])
+
+    def core(q, k_new, v_new, k_cache, v_cache, pos):
+        out, k_cache, v_cache = _decode_core(q, k_new, v_new, k_cache,
+                                             v_cache, pos, cfg, impl,
+                                             page_size)
+        return out.to(dtype).reshape(out.shape[0], 1, -1), k_cache, v_cache
+
+    out, k_cache, v_cache = on_local_shards(
+        core, q, (ph,) * 5 + (pb,), (ph, ph, ph))(
+            q, k_new, v_new, kv_cache["k"], kv_cache["v"],
+            as_dtensor(pos, q))
     return matmul(out, params["wo"]), {"k": k_cache, "v": v_cache}
 
 

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import check_supported, resolve_device
+from repro_torch.models.model import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32, "float64": torch.float64}
@@ -71,7 +71,6 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
     dtype; a dtype casts every weight, bias and table to it while the
     norm parameters and the fp32 leaves (``_FP32_LEAVES``) stay as they
     are."""
-    check_supported(cfg)
     dev = resolve_device(device)
     layers = []
     for p in range(cfg.n_periods):
@@ -89,7 +88,6 @@ def decode_state_from_numpy(cfg: ModelConfig, state: Dict[str, Any],
     """The reference's decode state (numpy leaves, ``b{i}`` entries
     stacked over the periods) as the port's: one dict per layer, every
     tensor in its own dtype, the lane on axis 0."""
-    check_supported(cfg)
     dev = resolve_device(device)
     return [_convert(state[f"b{i}"], dev, None, index=p)
             for p in range(cfg.n_periods) for i in range(cfg.period)]

@@ -18,6 +18,10 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.local import (batch_only, is_dtensor,
+                                        on_local_shards, product,
+                                        vocab_gather)
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -27,9 +31,13 @@ def default_dtype() -> torch.dtype:
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the promoted dtype of the two, as JAX computes it."""
+    """``x @ w`` in the promoted dtype of the two, as JAX computes it. A
+    ``DTensor`` x sharded along an inner dim (the sequence, under
+    sequence parallelism) is gathered along it first, as Megatron's
+    sequence parallelism gathers before a projection
+    (``sharding.local.product``)."""
     dt = torch.promote_types(x.dtype, w.dtype)
-    return torch.matmul(x.to(dt), w.to(dt))
+    return product(x.to(dt), w.to(dt))
 
 
 def normal(gen: torch.Generator, shape: Sequence[int], std: float,
@@ -150,12 +158,20 @@ def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the table for integer ``tokens``, with ids mapped as the
     reference's gather maps them: a negative id counts from the end (id +
     V, as numpy indexes), then every id is clamped to [0, V - 1]. The
-    mapping runs on the tokens' own device, before the gather."""
+    mapping runs on the tokens' own device, before the gather. On a
+    ``DTensor`` table each rank gathers from its vocab slice
+    (``sharding.local.vocab_gather``)."""
     table = params["table"]
     vocab = table.shape[0]
+    if is_dtensor(table):
+        return vocab_gather(table, lambda t: _vocab_ids(t, vocab), tokens)
+    return table[_vocab_ids(tokens, vocab)]
+
+
+def _vocab_ids(tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Integer ids mapped as :func:`embed` says."""
     ids = tokens.long()
-    ids = torch.where(ids < 0, ids + vocab, ids).clamp_(0, vocab - 1)
-    return table[ids]
+    return torch.where(ids < 0, ids + vocab, ids).clamp_(0, vocab - 1)
 
 
 class _Unembed(torch.autograd.Function):
@@ -196,7 +212,12 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     ``torch.mm(..., out_dtype=float32)`` reads the table in its own
     dtype, differentiable through :class:`_Unembed`. The CPU has no such
     product, so there the activations and the table are cast to fp32 for
-    the call (the plain path, differentiated by autograd)."""
+    the call (the plain path, differentiated by autograd). On
+    ``DTensor``s each rank computes its batch rows against its vocab
+    slice of the table (``local_map``): the logits come out sharded as
+    the rows and the vocabulary are."""
+    if is_dtensor(x):
+        return _unembed_on_mesh(table, x)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda" and x2.dtype == table.dtype:
@@ -204,3 +225,18 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     else:
         out = torch.mm(x2.float(), table.float().t())
     return out.reshape(*lead, table.shape[0])
+
+
+def _unembed_on_mesh(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """:func:`unembed` of ``DTensor``s: x whole in its features and the
+    table whole in d, each rank's rows against its vocab slice."""
+    from torch.distributed.tensor import Replicate, Shard
+    vocab = [Shard(0) if p == Shard(0) else Replicate()
+             for p in table.placements]
+    # a mesh dim that splits the vocabulary gives each rank all rows
+    rows = [Replicate() if v == Shard(0) else r
+            for r, v in zip(batch_only(x), vocab)]
+    out = [Shard(x.ndim - 1) if v == Shard(0) else r
+           for r, v in zip(rows, vocab)]
+    return on_local_shards(lambda t, h: unembed(t, h), x, (vocab, rows),
+                           out)(table, x)

@@ -11,9 +11,12 @@ dict per layer, the lane on axis 0 of every tensor: ``{"k", "v"}`` for
 attention, ``{"h", "conv"}`` for Mamba, ``{"C", "n", "m"}`` for mLSTM and
 ``{"c", "n", "m", "h"}`` for sLSTM.
 
-Sequence parallelism raises ``NotImplementedError``: it needs the
-sharding slice of the port (``ROADMAP.md`` queue 1, "Sharding and
-launch").
+On a device mesh (parameters and inputs as ``DTensor``s, see
+``repro_torch.sharding``) the same code runs per rank on local shards;
+with ``cfg.seq_parallel`` the hidden state is redistributed to
+sequence-sharded on the ``model`` axis before each block, as the
+reference constrains it (``sharding.local.seq_parallel``; the identity
+with no mesh).
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; ``impl="plain"`` runs the attention kernels' plain
@@ -33,20 +36,12 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (Params, apply_mlp, apply_norm, embed,
                                        init_embedding, init_mlp, init_norm,
                                        rope_tables, unembed)
+from repro_torch.sharding.local import pick_last, seq_parallel
 
 DecodeState = List[Dict[str, torch.Tensor]]
 
 # The per-mixer decode states' keys, in the reference's tuple order.
 _STATE_KEYS = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "m", "h")}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    sequence parallelism."""
-    if cfg.seq_parallel:
-        raise NotImplementedError(
-            f"{cfg.name}: seq_parallel needs the sharding slice "
-            f"(ROADMAP.md queue 1, Sharding and launch)")
 
 
 def resolve_device(device) -> torch.device:
@@ -91,7 +86,6 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     with the reference's shapes, dtypes and init scales (the numbers
     differ from JAX's: the generators differ; ``convert`` carries the
     reference's own)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -176,7 +170,6 @@ def forward(params: Params, cfg: ModelConfig, *,
     period: a layer keeps only its input, and its forward runs again in
     the backward pass (the whole layer is recomputed; the reference's
     policy keeps its non-batched dot outputs)."""
-    check_supported(cfg)
     parts = []
     if embeds is not None:
         parts.append(embeds.to(torch.bfloat16))
@@ -191,6 +184,8 @@ def forward(params: Params, cfg: ModelConfig, *,
     remat = remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer, (mixer, mlp) in zip(params["layers"], layer_kinds(cfg)):
+        if cfg.seq_parallel:
+            h = seq_parallel(h)
         args = (layer, h, cfg, mixer, mlp, positions, causal,
                 attention_impl, impl, rope)
         h, a = checkpoint(_apply_block_seq, *args, use_reentrant=False) \
@@ -219,7 +214,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     """One zeroed state dict per layer (see the module docstring): bf16
     (batch, max_len, Hk, Dh) K and V caches for attention, the fp32
     recurrent states (and Mamba's bf16 conv window) otherwise."""
-    check_supported(cfg)
     dev = resolve_device(device)
     return [_init_state(cfg, mixer, batch, max_len, dev)
             for mixer, _ in layer_kinds(cfg)]
@@ -250,7 +244,6 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``kv_update="scatter"``; the recurrent states are new tensors."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-    check_supported(cfg)
     h = embed(params["embed"], tokens)
     rope = rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta) \
         if cfg.uses_attention else None
@@ -275,6 +268,6 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     labels = torch.clamp(labels, min=0).long()
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+    picked = pick_last(logits, labels)
     ll = (picked - lse) * valid
     return -(ll.sum() / torch.clamp(valid.sum(), min=1))

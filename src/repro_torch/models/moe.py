@@ -22,6 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Params, matmul, normal
+from repro_torch.sharding.local import (is_dtensor, on_local_shards,
+                                        replicated, unreduced)
 
 
 class Routing(NamedTuple):
@@ -89,8 +91,9 @@ def route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig
 def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
     """How often each of ``n`` ids occurs in ``ids`` (``bincount`` with
     ``minlength=n``, which on the card reads the largest id back to the
-    host; this does not)."""
-    return torch.zeros(n, dtype=ids.dtype, device=ids.device).scatter_add_(
+    host; this does not). Out of place: nothing writes into the fresh
+    zeros."""
+    return torch.zeros(n, dtype=ids.dtype, device=ids.device).scatter_add(
         0, ids, torch.ones_like(ids))
 
 
@@ -172,33 +175,98 @@ def _onehots(r: Routing, E: int, dtype: torch.dtype
     return expert_oh.to(dtype), pos_oh.to(dtype)
 
 
-def moe_forward(params: Params, x: torch.Tensor, cfg: ModelConfig
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (y (B, S, d), fp32 aux loss)."""
-    B, S, d = x.shape
-    E = cfg.moe.n_experts
-    xt = x.reshape(B * S, d)
-    r = route(params["router"], xt, cfg)
-    einsum = getattr(cfg, "moe_dispatch", "sort") == "einsum"
-    if einsum:
-        expert_oh, pos_oh = _onehots(r, E, x.dtype)
-        disp = torch.einsum("tke,tkc->tec", expert_oh, pos_oh)
-        comb = torch.einsum("tke,tkc,tk->tec", expert_oh.float(),
-                            pos_oh.float(), r.gates.float()).to(x.dtype)
-        xe = torch.einsum("td,tec->ecd", xt, disp)
-    else:
-        xe, slot = _dispatch_sort(xt, r, E)
+def _dispatch(xt: torch.Tensor, r: Routing, E: int, einsum: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xe (E, C, d), what :func:`_combine` reads: the sort dispatch's
+    slots, or the einsum dispatch's (T, E, C) combine weights)."""
+    if not einsum:
+        return _dispatch_sort(xt, r, E)
+    expert_oh, pos_oh = _onehots(r, E, xt.dtype)
+    disp = torch.einsum("tke,tkc->tec", expert_oh, pos_oh)
+    comb = torch.einsum("tke,tkc,tk->tec", expert_oh.float(),
+                        pos_oh.float(), r.gates.float()).to(xt.dtype)
+    return torch.einsum("td,tec->ecd", xt, disp), comb
 
+
+def _combine(ye: torch.Tensor, how: torch.Tensor, gates: torch.Tensor,
+             einsum: bool, dtype: torch.dtype) -> torch.Tensor:
+    """y (T, d) from the expert outputs ``ye`` (E, C, d)."""
+    if einsum:
+        return torch.einsum("ecd,tec->td", ye, how)
+    return _combine_sort(ye, how, gates, dtype)
+
+
+def _experts(params: Params, xe: torch.Tensor, cfg: ModelConfig
+             ) -> torch.Tensor:
+    """ye (E, C, d): every expert's MLP over its slots, batched GEMMs."""
     h = matmul(xe, params["w_in"])                               # (E, C, de)
     g = matmul(xe, params["w_gate"]) if "w_gate" in params else None
-    ye = matmul(_activate(h, g, cfg.mlp_type), params["w_out"])  # (E, C, d)
+    return matmul(_activate(h, g, cfg.mlp_type), params["w_out"])
 
-    if einsum:
-        y = torch.einsum("ecd,tec->td", ye, comb)
-    else:
-        y = _combine_sort(ye, slot, r.gates, x.dtype)
+
+def _shared(params: Params, x: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """The shared experts' MLP over x (..., d)."""
+    hs = matmul(x, params["sh_in"])
+    gs = matmul(x, params["sh_gate"]) if "sh_gate" in params else None
+    return matmul(_activate(hs, gs, cfg.mlp_type), params["sh_out"])
+
+
+def _routed_on_mesh(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                    einsum: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed half of :func:`moe_forward` on a (B, S, d) ``DTensor``.
+
+    Routing couples every token of the batch (the capacity and the queue
+    positions count them all), so every rank routes all of them: the
+    tokens and the router are gathered, and routing, dispatch and combine
+    run on each rank's whole copy (``local_map``). The expert products
+    run as DTensor batched GEMMs with the expert axis where the expert
+    stacks have it (over ``model``), and their outputs are gathered for
+    the combine. The result is what the unplaced layer computes; each
+    rank then keeps its own rows."""
+    from torch.distributed.tensor import Replicate, Shard
+    E = cfg.moe.n_experts
+    B, S, d = x.shape
+    rep = replicated(x)
+
+    def route_dispatch(x, router):
+        xt = x.reshape(B * S, d)
+        r = route(router, xt, cfg)
+        xe, how = _dispatch(xt, r, E, einsum)
+        return xe, how, r.gates, r.aux
+
+    def combine(ye, how, gates):
+        return _combine(ye, how, gates, einsum, x.dtype).reshape(B, S, d)
+
+    xe, how, gates, aux = on_local_shards(
+        route_dispatch, x, (rep, rep), (rep, rep, rep, rep))(
+            x, params["router"])
+    experts = [p if p == Shard(0) else Replicate()
+               for p in params["w_in"].placements]
+    ye = _experts(params, xe.redistribute(xe.device_mesh, experts), cfg)
+    y = on_local_shards(combine, x, (rep, rep, rep), rep)(
+        ye.redistribute(ye.device_mesh, rep), how, gates)
+    return y.redistribute(x.device_mesh, unreduced(x)), aux
+
+
+def moe_forward(params: Params, x: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y (B, S, d), fp32 aux loss). On ``DTensor``s the
+    routed experts run as :func:`_routed_on_mesh` says."""
+    einsum = getattr(cfg, "moe_dispatch", "sort") == "einsum"
+    if is_dtensor(x):
+        y, aux = _routed_on_mesh(params, x, cfg, einsum)
+        if "sh_in" in params:
+            y = y + _shared(params, x, cfg)
+        return y, aux
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    r = route(params["router"], xt, cfg)
+    xe, how = _dispatch(xt, r, cfg.moe.n_experts, einsum)
+    y = _combine(_experts(params, xe, cfg), how, r.gates, einsum, x.dtype)
+    y = y.reshape(B, S, d)
     if "sh_in" in params:
-        hs = matmul(xt, params["sh_in"])
-        gs = matmul(xt, params["sh_gate"]) if "sh_gate" in params else None
-        y = y + matmul(_activate(hs, gs, cfg.mlp_type), params["sh_out"])
-    return y.reshape(B, S, d), r.aux
+        # on x (B, S, d), as the mesh path takes it: x's gradient sums
+        # the routed and the shared part in one order on both paths
+        y = y + _shared(params, x, cfg)
+    return y, r.aux

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Params, matmul, normal
+from repro_torch.sharding.local import batch_rows, on_batch_rows
 
 #: The stabilizer's start and the log input gate of padded positions.
 NEG_BIG = -1e30
@@ -106,14 +107,23 @@ def _doubling_scan(a: torch.Tensor, b: torch.Tensor
     return a, b
 
 
-def mamba_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
-                  chunk: int = 128
-                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x (B, S, d) -> (y, {"h": (B, di, ds) fp32, "conv": (B, dc - 1, di)
-    the last inputs of the conv})."""
-    B, S, _ = x.shape
+#: The Mamba parameters its recurrence reads (not the two projections).
+_MAMBA_CORE = ("conv_w", "conv_b", "w_dt_down", "w_dt_up", "w_bc",
+               "dt_bias", "A_log", "D")
+
+
+def _core(params: Params) -> Params:
+    """The parameters of the recurrence."""
+    return {k: params[k] for k in _MAMBA_CORE if k in params}
+
+
+def _mamba_scan(params: Params, xi: torch.Tensor, cfg: ModelConfig,
+                chunk: int) -> Tuple[torch.Tensor, State]:
+    """The conv, the selective gates and the chunked scan over xi (B, S,
+    di): (fp32 y (B, S, di) before the ``silu(z)`` gate, (h, the conv
+    window))."""
+    B, S, _ = xi.shape
     di, ds, dc, _ = _mamba_dims(cfg)
-    xi, z = torch.chunk(matmul(x, params["w_in"]), 2, dim=-1)
     xc = _causal_conv(params, xi)                           # (B, S, di)
     dt, Bsel, Csel = _mamba_gates(params, xc)
     A = -torch.exp(params["A_log"])                         # (di, ds)
@@ -123,7 +133,7 @@ def mamba_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                                 for t in (xc, dt, Bsel, Csel))
     else:
         xc_p, dt_p, B_p, C_p = xc, dt, Bsel, Csel
-    h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+    h = torch.zeros((B, di, ds), dtype=torch.float32, device=xi.device)
     ys = []
     for c0 in range(0, S + pad, chunk):
         xcc = xc_p[:, c0:c0 + chunk].float()
@@ -136,8 +146,22 @@ def mamba_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                   + params["D"] * xcc)
         h = h_t[:, -1]
     y = torch.cat(ys, dim=1)[:, :S]
-    y = y.to(x.dtype) * F.silu(z)
     conv_state = F.pad(xi, (0, 0, dc - 1, 0))[:, S:S + dc - 1]
+    return y, (h, conv_state)
+
+
+def mamba_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                  chunk: int = 128
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, S, d) -> (y, {"h": (B, di, ds) fp32, "conv": (B, dc - 1, di)
+    the last inputs of the conv}). On ``DTensor``s the two projections
+    stay tensor-parallel and the recurrence runs on each rank's batch
+    rows (``on_batch_rows``)."""
+    xi, z = torch.chunk(matmul(x, params["w_in"]), 2, dim=-1)
+    y, (h, conv_state) = on_batch_rows(
+        lambda p, xi: _mamba_scan(p, xi, cfg, chunk), xi, _core(params),
+        (), 3)
+    y = y.to(x.dtype) * F.silu(z)
     return matmul(y, params["w_out"]), {"h": h, "conv": conv_state}
 
 
@@ -152,25 +176,35 @@ def init_mamba_state(cfg: ModelConfig, batch: int, device
                                 device=device)}
 
 
-def mamba_step(params: Params, x_t: torch.Tensor,
-               state: Dict[str, torch.Tensor], cfg: ModelConfig
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x_t (B, 1, d) single-token decode."""
-    xi, z = torch.chunk(matmul(x_t[:, 0], params["w_in"]), 2, dim=-1)
-    window = torch.cat([state["conv"],
-                        xi[:, None].to(state["conv"].dtype)], dim=1)
+def _mamba_cell(params: Params, xi: torch.Tensor, h: torch.Tensor,
+                conv: torch.Tensor, dtype: torch.dtype
+                ) -> Tuple[torch.Tensor, State]:
+    """One position of the recurrence: xi (B, di) and the state -> (fp32
+    y (B, di) before the ``silu(z)`` gate, (h, conv window))."""
+    window = torch.cat([conv, xi[:, None].to(conv.dtype)], dim=1)
     xc = torch.einsum("bci,ci->bi", window.float(),
                       params["conv_w"].float())
-    xc = F.silu(xc + params["conv_b"].float()).to(x_t.dtype)
+    xc = F.silu(xc + params["conv_b"].float()).to(dtype)
     dt, Bsel, Csel = _mamba_gates(params, xc)               # (B, di), (B, ds)
     A = -torch.exp(params["A_log"])
     a = torch.exp(dt[..., None] * A)                        # (B, di, ds)
     b = (dt * xc.float())[..., None] * Bsel[:, None, :]
-    h = a * state["h"] + b
+    h = a * h + b
     y = torch.einsum("bis,bs->bi", h, Csel) + params["D"] * xc.float()
+    return y, (h, window[:, 1:])
+
+
+def mamba_step(params: Params, x_t: torch.Tensor,
+               state: Dict[str, torch.Tensor], cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x_t (B, 1, d) single-token decode (on ``DTensor``s the recurrence
+    runs on batch rows, as in :func:`mamba_forward`)."""
+    xi, z = torch.chunk(matmul(x_t[:, 0], params["w_in"]), 2, dim=-1)
+    y, (h, conv) = on_batch_rows(
+        lambda p, xi, h, c: _mamba_cell(p, xi, h, c, x_t.dtype), xi,
+        _core(params), (state["h"], state["conv"]), 3)
     y = y.to(x_t.dtype) * F.silu(z)
-    return matmul(y, params["w_out"])[:, None], {"h": h,
-                                                 "conv": window[:, 1:]}
+    return matmul(y, params["w_out"])[:, None], {"h": h, "conv": conv}
 
 
 # ------------------------------------------------------------------ mLSTM --
@@ -285,10 +319,12 @@ def _mlstm_chunkwise(q, k, v, log_i, log_f, state: State, chunk: int = 64
     return torch.cat(hs, dim=1)[:, :S], (C0, n0, m0)
 
 
+@batch_rows(4)
 def mlstm_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                   impl: str = "auto") -> Tuple[torch.Tensor, State]:
     """x (B, S, d) -> (y, (C, n, m)). ``impl``: "auto" (chunkwise at S >=
-    128), "chunkwise" or "sequential"."""
+    128), "chunkwise" or "sequential". On ``DTensor``s each rank runs
+    its batch rows (``batch_rows``)."""
     B, S, _ = x.shape
     dp, H, dh = _xlstm_dims(cfg)
     xin, z = torch.chunk(matmul(x, params["w_up"]), 2, dim=-1)
@@ -315,6 +351,7 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, device) -> State:
             torch.full((batch, H), NEG_BIG, dtype=f32, device=device))
 
 
+@batch_rows(4, stateful=True)
 def mlstm_step(params: Params, x_t: torch.Tensor, state: State,
                cfg: ModelConfig) -> Tuple[torch.Tensor, State]:
     """x_t (B, 1, d) single-token decode."""
@@ -372,9 +409,11 @@ def _slstm_recurrence(params: Params, xin: torch.Tensor, state: State
     return torch.stack(hs, dim=1), (c, n, m, h)
 
 
+@batch_rows(5)
 def slstm_forward(params: Params, x: torch.Tensor, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, State]:
-    """x (B, S, d) -> (y, (c, n, m, h))."""
+    """x (B, S, d) -> (y, (c, n, m, h)); on ``DTensor``s each rank runs
+    its batch rows."""
     xin, z = torch.chunk(matmul(x, params["w_up"]), 2, dim=-1)
     hs, state = _slstm_recurrence(params, xin,
                                   init_slstm_state(cfg, x.shape[0],
@@ -390,6 +429,7 @@ def init_slstm_state(cfg: ModelConfig, batch: int, device) -> State:
     return z, z.clone(), torch.full_like(z, NEG_BIG), z.clone()
 
 
+@batch_rows(5, stateful=True)
 def slstm_step(params: Params, x_t: torch.Tensor, state: State,
                cfg: ModelConfig) -> Tuple[torch.Tensor, State]:
     """x_t (B, 1, d) single-token decode."""

@@ -14,17 +14,27 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import decode_step, forward
+from repro_torch.sharding.local import batch_only, is_dtensor, on_local_shards
+
+
+def _greedy(last: torch.Tensor) -> torch.Tensor:
+    """(B, V) logits -> (B, 1) int32 argmax."""
+    return torch.argmax(last, dim=-1).to(torch.int32)[:, None]
 
 
 def make_serve_step(cfg: ModelConfig, impl: str = "kernel") -> Callable:
-    """A greedy batched decode step for ``cfg``."""
+    """A greedy batched decode step for ``cfg``. On ``DTensor`` logits
+    each rank takes the argmax of its whole rows (the vocabulary
+    gathered first)."""
     @torch.no_grad()
     def serve_step(params, tokens: torch.Tensor, state, pos: torch.Tensor):
         logits, state = decode_step(params, cfg, tokens, state, pos,
                                     impl=impl)
-        next_tokens = torch.argmax(logits[:, -1], dim=-1).to(
-            torch.int32)[:, None]
-        return next_tokens, state
+        last = logits[:, -1]
+        if is_dtensor(last):
+            rows = batch_only(last)
+            return on_local_shards(_greedy, last, (rows,), rows)(last), state
+        return _greedy(last), state
     return serve_step
 
 

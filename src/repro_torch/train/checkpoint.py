@@ -12,13 +12,15 @@ The port of ``repro/train/checkpoint.py``, with the same layout on disk
 Trees are the port's nested dicts and lists of tensors (or numpy
 arrays), their leaves named and ordered as the reference names and
 orders a pytree's (:mod:`repro_torch.train.tree`). One process writes
-everything (this slice runs on one device). bfloat16 leaves are stored
+everything: a ``DTensor`` leaf is gathered and written whole, in the
+reference's format. bfloat16 leaves are stored
 as their raw 16-bit words with the logical dtype recorded, as the
 reference stores them, so either package reads the other's files.
 ``AsyncCheckpointer`` copies to the host on the caller's thread and
 serializes on a background thread; ``keep`` bounds retention. Restores
 place each leaf on the device and in the dtype of the matching leaf of
-``like``.
+``like``, and a ``DTensor`` leaf of ``like`` by its mesh and placements
+(the reference restores by ``shardings`` the same way).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.sharding.local import is_dtensor
 from repro_torch.train.tree import Tree, named_leaves, tree_map
 
 PROCESS_INDEX = 0
@@ -41,13 +44,18 @@ def _host_array(leaf: Any) -> Tuple[np.ndarray, str]:
     """(numpy array to store, logical dtype name) of one leaf; bf16 as
     its raw uint16 words."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = _whole(leaf).detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
     else:
         arr = np.asarray(leaf)
     return arr, str(arr.dtype)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor: a ``DTensor`` gathered, a tensor itself."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def save_checkpoint(directory: str, step: int, tree: Tree,
@@ -104,6 +112,11 @@ def _tensor(arr: np.ndarray, logical_dtype: str,
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
+    if is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+        t = t.to(device=like.device_mesh.device_type, dtype=like.dtype)
+        return distribute_tensor(t, like.device_mesh, like.placements,
+                                 src_data_rank=None)
     if isinstance(like, torch.Tensor):
         return t.to(device=like.device, dtype=like.dtype)
     return t
@@ -154,7 +167,8 @@ class AsyncCheckpointer:
         self.wait()
         host_tree = tree_map(lambda x: _host_array(x)[0].copy()
                              if not isinstance(x, torch.Tensor)
-                             else x.detach().to("cpu", copy=True), tree)
+                             else _whole(x).detach().to("cpu", copy=True),
+                             tree)
 
         def run():
             try:

@@ -49,12 +49,14 @@ def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def adamw_init(params: Tree, cfg: OptimizerConfig) -> Dict[str, Any]:
-    """Zero first and second moments shaped like ``params`` (in
-    ``state_dtype`` or fp32) and an int32 step count of 0."""
+    """Zero first and second moments shaped (and, for ``DTensor``
+    parameters, placed) like ``params``, in ``state_dtype`` or fp32, and
+    an int32 step count of 0."""
     dt = cfg.state_dtype or torch.float32
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros_like(p, dtype=dt,
+                                memory_format=torch.contiguous_format)
 
     dev = leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),

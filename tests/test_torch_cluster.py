@@ -206,9 +206,10 @@ def test_same_seed_same_bytes(fmt, tmp_path):
 
 def test_port_imports_neither_jax_nor_repro():
     """A small port workload, a reduced-size serving run (Jamba: Mamba,
-    attention and MoE blocks) and a few steps of the training entry point
-    in a fresh interpreter leave ``jax`` and every ``repro`` module out of
-    ``sys.modules``. It imports
+    attention and MoE blocks), a few steps of the training entry point
+    and one reduced dry-run cell on a 2 x 2 fake mesh (the sharding rules
+    and the launch layer) in a fresh interpreter leave ``jax`` and every
+    ``repro`` module out of ``sys.modules``. It imports
     ``repro_torch.faults`` first: unlike the reference's, the port's
     packages import in any order."""
     code = (
@@ -245,6 +246,17 @@ def test_port_imports_neither_jax_nor_repro():
         "'--vocab', '64', '--data-dir', tempfile.mkdtemp(), "
         "'--ckpt-dir', tempfile.mkdtemp(), '--ckpt-every', '2'])\n"
         "assert len(out['losses']) == 3\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.sharding import partition\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.configs.shapes import ShapeConfig\n"
+        "from repro_torch.launch.mesh import MeshShape\n"
+        "dist.destroy_process_group()\n"
+        "row = dryrun.run_cell('llama3.2-3b', 'train', '2x2', "
+        "verbose=False, cfg=reduced(get('llama3.2-3b'), d_model=32, "
+        "n_periods=1, vocab=64), shape=ShapeConfig('train', 'train', 64, "
+        "4), mesh_shape=MeshShape(('data', 'model'), (2, 2)))\n"
+        "assert row['status'] == 'ok' and row['hlo_flops_per_chip'] > 0\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'repro' or k.startswith('repro.')]\n"
         "print('BAD', bad)\n"

@@ -1,0 +1,139 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``): reduced llama,
+deepseek-moe, xlstm and Jamba cells (train, prefill, decode) on 2 x 2
+and 2 x 2 x 2 fake meshes, each an ``ok`` row with positive per-chip
+FLOPs and bytes; then the reference's own two cells
+(tests/test_dryrun.py), marked ``slow`` as there.
+
+Every cell runs in a subprocess: a fake process group lives as long as
+its process, and an xdist worker runs other test files after this one.
+The two meshes' subprocesses run side by side."""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+ARCHS = ["llama3.2-3b", "deepseek-moe-16b", "xlstm-125m",
+         "jamba-1.5-large-398b"]
+KINDS = ["train", "prefill", "decode"]
+MESHES = {"2x2": (("data", "model"), (2, 2)),
+          "2x2x2": (("pod", "data", "model"), (2, 2, 2))}
+SEQ, BATCH = 16, 8
+
+
+def env():
+    """The subprocess environment: the port on the path."""
+    return dict(os.environ, PYTHONPATH=str(REPO / "src"))
+
+
+CELLS = textwrap.dedent("""
+    import json, sys
+    from repro_torch.configs import get, reduced
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    names, sizes, archs, kinds, seq, batch = json.loads(sys.argv[1])
+    mesh = MeshShape(tuple(names), tuple(sizes))
+    rows = {}
+    for arch in archs:
+        for kind in kinds:
+            try:
+                rows[arch + "/" + kind] = dryrun.run_cell(
+                    arch, kind, "x".join(map(str, sizes)), verbose=False,
+                    cfg=reduced(get(arch)),
+                    shape=ShapeConfig(kind, kind, seq, batch),
+                    mesh_shape=mesh)
+            except Exception as e:
+                rows[arch + "/" + kind] = {"status": "fail",
+                                           "error": repr(e)}
+    print("ROWS " + json.dumps(rows))
+""")
+
+
+@pytest.fixture(scope="module")
+def rows():
+    """Every reduced cell's row, by mesh name and ``arch/kind``."""
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", CELLS,
+         json.dumps([names, sizes, ARCHS, KINDS, SEQ, BATCH])],
+        env=env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name, (names, sizes) in MESHES.items()}
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        assert proc.returncode == 0, stdout[-4000:] + stderr[-4000:]
+        line = next(ln for ln in stdout.splitlines()
+                    if ln.startswith("ROWS "))
+        out[name] = json.loads(line[5:])
+    return out
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reduced_cell_ok(rows, arch, kind, mesh):
+    row = rows[mesh][f"{arch}/{kind}"]
+    assert row["status"] == "ok", row
+    chips = 1
+    for s in MESHES[mesh][1]:
+        chips *= s
+    assert row["chips"] == chips
+    assert row["hlo_flops_per_chip"] > 0
+    assert row["hlo_bytes_per_chip"] > 0
+    assert row["memory_s"] > 0 and row["seq_iters"] > 0
+    assert row["bottleneck"] in ("compute", "memory", "collective",
+                                 "serial")
+    assert row["memory_analysis"]["argument_bytes"] > 0
+    assert row["memory_analysis"]["temp_bytes"] > 0
+    assert 0 < row["useful_ratio"]
+
+
+def test_per_chip_counts_shrink_with_the_mesh(rows):
+    """The same train cell on twice the chips (the data axis split in
+    two) does about half the work per chip: the counts are per chip.
+    Routed layers are left out: every rank routes the whole batch and
+    its experts take all of it (``models.moe._routed_on_mesh``), so
+    their work does not shrink with the data axis."""
+    for arch in ("llama3.2-3b", "xlstm-125m"):
+        small = rows["2x2"][f"{arch}/train"]["hlo_flops_per_chip"]
+        big = rows["2x2x2"][f"{arch}/train"]["hlo_flops_per_chip"]
+        assert 0.4 * small < big < 0.75 * small, (arch, small, big)
+
+
+def run_dryrun(*args):
+    """The dry-run's command line, in a subprocess."""
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+        capture_output=True, text=True, env=env(), cwd=REPO, timeout=540)
+
+
+@pytest.mark.slow
+def test_single_cell_multipod(tmp_path):
+    out = str(tmp_path / "r.jsonl")
+    res = run_dryrun("--arch", "olmo-1b", "--shape", "decode_32k",
+                     "--mesh", "multipod", "--out", out)
+    assert res.returncode == 0, res.stdout + res.stderr
+    row = json.loads(open(out).readline())
+    assert row["status"] == "ok"
+    assert row["chips"] == 512
+    assert row["hlo_flops_per_chip"] > 0
+    assert row["memory_s"] > 0
+    assert row["bottleneck"] in ("compute", "memory", "collective", "serial")
+    assert row["memory_analysis"]["temp_bytes"] is not None
+
+
+@pytest.mark.slow
+def test_skip_cells_are_reported(tmp_path):
+    out = str(tmp_path / "s.jsonl")
+    res = run_dryrun("--arch", "hubert-xlarge", "--shape", "decode_32k",
+                     "--mesh", "pod", "--out", out)
+    assert res.returncode == 0, res.stdout + res.stderr
+    row = json.loads(open(out).readline())
+    assert row["status"] == "skip"
+    assert "encoder-only" in row["reason"]

@@ -276,9 +276,15 @@ def test_params_from_numpy_moe_ssm_leaves(arch):
 
 
 def test_seq_parallel_raises():
-    cfg = dataclasses.replace(reduced(get("llama3.2-3b")), seq_parallel=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmodel.init_params(cfg, device="cpu")
+    """seq_parallel raised until the sharding slice landed; now nothing
+    raises and, with no mesh, the constraint changes no logit."""
+    base = reduced(get("llama3.2-3b"))
+    cfg = dataclasses.replace(base, seq_parallel=True)
+    params = tmodel.init_params(cfg, device="cpu")
+    tokens = torch.from_numpy(inputs(base)[0])
+    got, _ = tmodel.forward(params, cfg, tokens=tokens)
+    want, _ = tmodel.forward(params, base, tokens=tokens)
+    assert torch.equal(got, want)
 
 
 def test_default_device_is_the_card():
@@ -505,6 +511,101 @@ def test_decode_step_matches(dtype, arch):
     if dtype == "bfloat16" and arch == "xlstm-125m":
         tol = max(tol, bf16_floor(jp, jcfg, tokens=as_j(tokens)))
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+JAX_TOP_K = jax.lax.top_k
+TORCH_ROUTE = tmoe.route
+
+
+def recording_top_k(calls):
+    """A ``jax.lax.top_k`` that appends each call's sorted indices to
+    ``calls`` through an ordered debug callback (it records inside
+    ``jit`` and ``scan``)."""
+
+    def top_k(x, k):
+        vals, idx = JAX_TOP_K(x, k)
+        jax.debug.callback(
+            lambda i: calls.append(np.sort(np.asarray(i), -1)), idx,
+            ordered=True)
+        return vals, idx
+    return top_k
+
+
+def reference_decode(jp, jcfg, tokens):
+    """The reference's teacher-forced decode logits (B, T, V) alone, as
+    ``run_decode`` runs it."""
+    b, steps = tokens.shape
+    jstep = jax.jit(lambda p, t, st, pos: jmodel.decode_step(p, jcfg, t, st,
+                                                             pos))
+    jstate = jmodel.init_decode_state(jcfg, b, steps)
+    out = []
+    for t in range(steps):
+        lg, jstate = jstep(jp, jnp.asarray(tokens[:, t:t + 1].astype(
+            np.int32)), jstate, jnp.full((b,), t, jnp.int32))
+        out.append(f32(lg)[:, 0])
+    return np.stack(out, 1)
+
+
+def recording_route(calls):
+    """``tmoe.route`` appending each call's sorted experts to ``calls``."""
+
+    def route(router, xt, cfg):
+        r = TORCH_ROUTE(router, xt, cfg)
+        calls.append(np.sort(r.experts.numpy(), -1))
+        return r
+    return route
+
+
+def rounding_floor(runs, lanes, steps):
+    """max |bf16 - fp32| of two (logits, routing calls) runs over the
+    positions routed alike in every layer, as was every earlier position
+    of the lane."""
+    (lo, calls_lo), (hi, calls_hi) = runs
+    same = np.all(by_position(calls_lo, lanes, steps)
+                  == by_position(calls_hi, lanes, steps), -1)
+    mask = np.cumprod(same.all(-1), axis=1) > 0
+    return float(np.abs(lo[mask] - hi[mask]).max())
+
+
+def reference_decode_floor(arch, tokens, monkeypatch):
+    """The reference's own bf16 rounding of a routed decode: max |bf16 -
+    fp32| of its two decodes of ``tokens`` (two plain formulations of
+    the same model), over the positions the two routed alike. The port's
+    rounding is not part of it."""
+    runs = []
+    for dtype in ("bfloat16", "float32"):
+        jcfg, _, jp, _ = both_params(arch, dtype)
+        calls = []
+        monkeypatch.setattr(jax.lax, "top_k", recording_top_k(calls))
+        logits = reference_decode(jp, jcfg, tokens)
+        jax.effects_barrier()
+        runs.append((logits, calls))
+    monkeypatch.undo()
+    return rounding_floor(runs, *tokens.shape)
+
+
+@pytest.mark.parametrize("arch", ROUTED)
+def test_routed_decode_bf16_matches(arch, monkeypatch):
+    """The routed architectures' bf16 decode, step by step, against the
+    reference's ``decode_step`` (``DECODE_CASES`` holds them in fp32
+    only). Both sides' routings are recorded (the reference's through a
+    debug callback on its ``jax.lax.top_k``) and the logits are held
+    where the two routed alike (``hold_where_routed_alike``, the routing
+    rule of PERF.md §2) to ``DECODE_BF16_TOL``, or, where that is larger,
+    to 1.5 x the reference's own bf16 rounding of the same decode
+    (``reference_decode_floor``; Jamba's 16 reduced layers carry it
+    farthest, ROADMAP.md queue 3)."""
+    jcfg, tcfg, jp, tp = both_params(arch, "bfloat16")
+    tokens = np.random.default_rng(10).integers(0, tcfg.vocab_size, (B, 8))
+    tol = max(DECODE_BF16_TOL,
+              1.5 * reference_decode_floor(arch, tokens, monkeypatch))
+    tcalls, jcalls = [], []
+    monkeypatch.setattr(tmoe, "route", recording_route(tcalls))
+    monkeypatch.setattr(jax.lax, "top_k", recording_top_k(jcalls))
+    want, got = run_decode(jp, jcfg, tp, tcfg, tokens)
+    jax.effects_barrier()
+    assert len(jcalls) == len(tcalls) > 0
+    hold_where_routed_alike(got, want, tcalls, jcalls, tol)
 
 
 @pytest.mark.parametrize("arch", MOE_SSM)
