@@ -45,8 +45,9 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                versions on the sweeps of the reference's kernel tests
                (fp32 within 2e-5, bf16 within 2e-2 / 3e-2), the bf16
                flash kernel at every head dim (ragged Sk, q_offset), the
-               paged kernel at every split count, and both at the
-               serving slice's own shapes;
+               paged kernel at every split count, at head dims 80 and
+               192 with a GQA group of 12, and both at the serving
+               slice's own shapes;
   8. prefill — llama3.2-3b at full width and depth (28 layers, random
                bf16 weights from a seed) through ``make_prefill_step`` on
                B=2 x S=4096 tokens: "auto" takes the blockwise path, so
@@ -61,7 +62,9 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                through the paged kernel once per layer. The run is then
                replayed teacher-forced on the plain versions, every
                step's logits compared within the same bounds, the
-               EngineStats equal. Two windows of the run's calls (prompt
+               EngineStats equal, beside a floor engine as in 16 (every
+               prefill and serving phase runs these same two checks,
+               ``prefill_check`` and ``serve_check``). Two windows of the run's calls (prompt
                replay, batched decode) are re-run for ms per step and,
                under torch.profiler, the card's busy share; the first
                layer's paged call of a B = 1 prompt-replay step (slot 0,
@@ -127,7 +130,8 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                printed with its call's routing flips;
  17. replay[flash MHA] — flash forward and backward at deepseek's
                multi-head shape (B 2, S 4096, 16 / 16 heads of 128)
-               beside SDPA;
+               beside SDPA, the forward also within a relative L2 error
+               of FLASH_REPLAY_REL_L2;
  18. moe-train — deepseek-moe-16b at full width and 4 of 28 layers on
                B 1 x S 4096 from the token pipeline: first-step
                gradients against the plain step on the kernel run's
@@ -144,7 +148,37 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                attention, MoE every other layer, capacity_factor 1.25):
                prefill on B 2 x S 4096 and the engine, each as in 15 and
                16;
- 21. launch-train — llama3.2-3b at full width and depth trained through
+ 21. hubert  — hubert-xlarge at full size (48 layers, d_model 1280, 16
+               heads of 80, non-causal, vocab 504, random bf16 weights):
+               prefill on B 2 x S 4096 seeded frame embeddings (48 flash
+               launches at D 80), held against the plain step within the
+               stated bounds, beside the floor of two plain formulations;
+               training at B 2 x S 4096 with seeded masked-unit labels,
+               remat per layer: the first step's loss, grad norm and
+               worst leaf against the plain step within the stated
+               bounds, beside its floor, 1 warm-up + 2 timed steps
+               (launches, step time, MFU, peak memory), one more step
+               under torch.profiler; the flash forward and backward at
+               its shape as in 17 (back to back, CUDA graph, plain, SDPA,
+               bound);
+ 22. nemotron — nemotron-4-340b at full width (d_model 18432, 96 / 8
+               heads of 192, squared-ReLU d_ff 73728, vocab 256000) and 2
+               of 96 layers: prefill on B 1 x S 4096 (flash at D 192, GQA
+               12) held as in 21; the engine (4 slots, max_len 512, 4
+               requests of 64 shared + 32 own tokens, 8 new) through the
+               paged kernel at D 192, replayed teacher-forced on the
+               plain versions as in 16; the flash forward and backward at
+               its shape and the paged kernel at its batched call;
+ 23. archs   — qwen1.5-0.5b, olmo-1b and internvl2-2b (256 patch
+               embeddings, then text) at full width and depth, and at
+               full width phi3.5-moe-42b-a6.6b at 8 of 32 layers and
+               jamba-1.5-large-398b at the first 4 of its 72 (3 Mamba,
+               1 attention, MoE on two; the routed two under the routing
+               rule): each a prefill on B 1 x S 4096
+               held as in 21 and an engine run (4 slots, max_len 128, 4
+               requests of 8 shared + 8 own tokens, 8 new: 8 batched
+               decode steps) held as in 16;
+ 24. launch-train — llama3.2-3b at full width and depth trained through
                ``repro_torch.launch.train``'s placement code on a (1, 1)
                NCCL mesh: parameters, AdamW moments and batches are
                DTensors, the flash kernels run on each rank's local
@@ -153,7 +187,7 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                and read after; losses and grad norms equal the unplaced
                steps' bit for bit (phase 12's, or the same steps run
                here when the train group is not run);
- 22. launch-roofline — the host's cost of one kernel launch (a stream of
+ 25. launch-roofline — the host's cost of one kernel launch (a stream of
                tiny ops timed with the host clock and CUDA events), then
                the dry-run's analyzer on the same cell (fake tensors, a
                one-rank fake mesh, the H100 model): its roofline terms
@@ -161,11 +195,14 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                each at most the measured step.
 
 ``--phases`` runs some groups of these (join: 2-6, attn: 7-10, train:
-11-14, moe: 15-18, ssm: 19, jamba: 20, launch: 21-22; the build and
-device lines always); the default is all of them.
+11-14, moe: 15-18, ssm: 19, jamba: 20, hubert: 21, nemotron: 22, archs:
+23, launch: 24-25; the build and device lines always); the default is
+all of them.
 
-Prints the kernels' JSON record and the card's name and power limit on
-the two lines before the last, and ``{"ok": true, "device": ...}`` last.
+Prints the kernels' JSON record (each kernel's row also gives its
+launches in every phase from 15 on under ``phase_launches`` and its
+replays at model shapes under ``shapes``) and the card's name and power
+limit on the two lines before the last, and ``{"ok": true, "device": ...}`` last.
 """
 from __future__ import annotations
 
@@ -199,6 +236,7 @@ from repro_torch.kernels.simjoin import ops, prune, simjoin  # noqa: E402
 from repro_torch.kernels.simjoin.ref import count_pairs_ref  # noqa: E402
 from repro_torch.configs import get as get_config  # noqa: E402
 from repro_torch.configs import reduced  # noqa: E402
+from repro_torch.configs.shapes import ShapeConfig  # noqa: E402
 from repro_torch.data.pipeline import (RawArrayTokenPipeline,  # noqa: E402
                                        make_token_corpus)
 from repro_torch.kernels.flash_attention import \
@@ -210,6 +248,7 @@ from repro_torch.kernels.paged_attention import \
     paged_attention as paged  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import \
     paged_attention_ref  # noqa: E402
+from repro_torch.launch.input_specs import batch_shape  # noqa: E402
 from repro_torch.launch.serve import synth_requests  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import moe as model_moe  # noqa: E402
@@ -228,7 +267,8 @@ from repro_torch.train.train_step import (  # noqa: E402
 from repro_torch.train.tree import leaves, named_leaves, tree_map  # noqa: E402
 
 # The phases in groups, in the order they run; ``--phases`` picks some.
-PHASE_GROUPS = ("join", "attn", "train", "moe", "ssm", "jamba", "launch")
+PHASE_GROUPS = ("join", "attn", "train", "moe", "ssm", "jamba", "hubert",
+                "nemotron", "archs", "launch")
 N_NODES = 8
 KERNEL_SRC = "src/repro_torch/kernels/simjoin/simjoin.cu"
 SOURCES = {
@@ -1081,6 +1121,13 @@ def phase_attention_kernels(dev):
         paged_case(slots, cfg.n_heads, cfg.n_kv_heads, hd, slots * n_pg, ps,
                    n_pg, [271] * slots, dtype, splits=every)
         cases += 2
+    # Head dims 80 and 192 with a GQA group of 12 (two CTAs of query
+    # heads a KV head), ragged lengths, every split count.
+    for d in (80, 192):
+        for dtype in (torch.float32, torch.bfloat16):
+            paged_case(4, 24, 2, d, 64, 16, 4, [0, 1, 33, 64], dtype,
+                       splits=every)
+            cases += 1
     q = randn(rng, (2, 4, 32), torch.float32, dev)
     q[1] = q[0]
     kp = randn(rng, (32, 16, 4, 32), torch.float32, dev)
@@ -1106,65 +1153,20 @@ def zero_launches():
     paged.LAUNCHES["paged_attention"] = 0
 
 
-def phase_prefill(params, cfg, dev):
-    """The prefill step at full size through the flash kernel, against
-    the same step on the plain versions; returns the flash launches."""
-    rng = np.random.default_rng(13)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
-        PREFILL_B, PREFILL_S))).to(dev)
-    step = make_prefill_step(cfg)
-    step(params, tokens=tokens[:, :256])        # warm up (short)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_launches()
-    t0 = time.perf_counter()
-    got = step(params, tokens=tokens)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = flash.LAUNCHES["flash_attention_fwd"]
-    peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.n_layers or paged.LAUNCHES["paged_attention"]:
-        raise AssertionError(f"prefill launched flash {launches} times "
-                             f"(want {cfg.n_layers}), paged "
-                             f"{paged.LAUNCHES['paged_attention']}")
-    _, pwall, activity = profiled(lambda: step(params, tokens=tokens))
-    label = card_label()
-    log(f"prefill: {ARCH} B={PREFILL_B} S={PREFILL_S}: wall {wall:.6f} s, "
-        f"flash launches {launches}, max_memory_allocated {peak} bytes "
-        f"[{label}]")
-    log(f"prefill: {share(activity, wall, pwall)}; "
-        f"{kernel_time(activity, 'flash_fwd_bf16_kernel')} [{label}]")
-    t0 = time.perf_counter()
-    want = make_prefill_step(cfg, impl="plain")(params, tokens=tokens)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    err, rel = close_logits(got, want, "prefill logits")
-    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
-    naive = make_prefill_step(cfg, attention_impl="naive", impl="plain")(
-        params, tokens=tokens)
-    floor_err, floor_rel = logit_errors(naive, want)
-    floor_agree = int((naive.argmax(-1) == want.argmax(-1)).sum())
-    log(f"prefill[plain]: wall {plain_wall:.6f} s; last-position logits "
-        f"{tuple(got.shape)}: kernel vs plain max_abs_err {err}, relative "
-        f"L2 err {rel} (bounds {MODEL_MAX_ABS}, {MODEL_REL_L2}), argmax "
-        f"agrees in {agree} of {PREFILL_B} rows; floor (plain naive vs "
-        f"plain blockwise attention) max_abs_err {floor_err}, relative L2 "
-        f"err {floor_rel}, argmax agrees in {floor_agree} of {PREFILL_B}")
-    return launches
-
-
 class StepRecorder:
     """Wraps a ``ServingEngine``'s decode step and prompt replay, and
     records every decode_step call: the slot of a replay step (None for a
     batched step), tokens, positions and the last position's logits, all
-    left on the card (nothing here synchronizes). ``capture`` names the
-    kind of the step under way when its paged call is to be kept by the
-    probe of ``phase_serve``: every batched step, and the first replay
-    step of slot 0 at position REPLAY_PROBE_POS (counted on the host from
-    the replay's start)."""
+    left on the card (nothing here synchronizes); ``router`` (a
+    ``RoutingRecorder``) is told each call's number. With ``probe_pos``,
+    ``capture`` names the kind of the step under way when its paged call
+    is to be kept by the probe of ``serve_check``: every batched step, and
+    the first replay step of slot 0 at position ``probe_pos`` (counted on
+    the host from the replay's start)."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, router, probe_pos=None):
         self.calls = []
+        self.router, self.probe_pos = router, probe_pos
         self.slot = None
         self.pos = 0
         self.capture = None
@@ -1184,9 +1186,12 @@ class StepRecorder:
 
     def __call__(self, params, tokens, state, pos):
         """One recorded decode step."""
-        if self.slot is None:
+        self.router.call = len(self.calls)
+        if self.probe_pos is None:
+            pass
+        elif self.slot is None:
             self.capture = "batched"
-        elif self.slot == 0 and self.pos == REPLAY_PROBE_POS and \
+        elif self.slot == 0 and self.pos == self.probe_pos and \
                 not self.kept:
             self.capture, self.kept = "replay", True
         logits, state = self._decode(params, tokens, state, pos)
@@ -1223,68 +1228,12 @@ def step_window(params, cfg, dev, window):
     return wall, pwall, activity
 
 
-def phase_serve(params, cfg, dev):
-    """The serving engine at full size through the paged kernel, then the
-    plain-version replay; returns the paged launches and the inputs of
-    the run's largest paged call (most live positions)."""
-    reqs = synth_requests(SERVE_REQUESTS, cfg.vocab_size, seed=0,
-                          sys_len=SYS_LEN, user_len=USER_LEN)
-    for r in reqs:
-        r.max_new_tokens = NEW_TOKENS
-    engine = ServingEngine(cfg, params, device=dev, **SERVE)
-    recorder = StepRecorder(engine)
-    probes = {}
-    inner = model_attention.paged_decode_attention
-
-    def probe(q, kp, vp, table, sl, impl="kernel"):
-        # The first layer's paged call of the steps ``capture`` names.
-        if recorder.capture:
-            probes.setdefault(recorder.capture, []).append(
-                [x.clone() for x in (q, kp, vp, table, sl)])
-            recorder.capture = None
-        return inner(q, kp, vp, table, sl, impl=impl)
-
-    model_attention.paged_decode_attention = probe
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_launches()
-    t0 = time.perf_counter()
-    try:
-        done = engine.run(reqs)
-        torch.cuda.synchronize()
-    finally:
-        model_attention.paged_decode_attention = inner
-    wall = time.perf_counter() - t0
-    launches = paged.LAUNCHES["paged_attention"]
-    peak = torch.cuda.max_memory_allocated()
-    calls = recorder.calls
-    n_calls = len(calls)
-    if launches != cfg.n_layers * n_calls or \
-            flash.LAUNCHES["flash_attention_fwd"]:
-        raise AssertionError(f"serving launched paged {launches} times for "
-                             f"{n_calls} decode steps, flash "
-                             f"{flash.LAUNCHES['flash_attention_fwd']}")
-    st = engine.stats
-    generated = sum(len(r.generated) for r in done)
-    if len(done) != SERVE_REQUESTS or generated != SERVE_REQUESTS * \
-            NEW_TOKENS:
-        raise AssertionError(f"served {len(done)} requests, {generated} "
-                             f"tokens")
-    n_rep = sum(1 for c in calls if c[0] is not None)
+def serve_windows(params, cfg, dev, calls):
+    """Two windows of the llama serving run's decode_step ``calls``,
+    re-run for ms per step and the card's busy share: 32 prompt-replay
+    steps of slot 0 from the middle of its first prompt, and the first 8
+    batched decode steps (all slots active)."""
     label = card_label()
-    log(f"serve: {ARCH} {SERVE}, {SERVE_REQUESTS} requests of {SYS_LEN} "
-        f"shared + {USER_LEN} own prompt tokens, {NEW_TOKENS} new each: "
-        f"{dataclasses.asdict(st)}")
-    log(f"serve: engine.run {wall:.6f} s wall, {generated} tokens = "
-        f"{generated / wall:.3f} generated tokens/s; {n_calls} decode_step "
-        f"calls ({n_rep} prompt-replay, {n_calls - n_rep} batched decode) "
-        f"= {1e3 * wall / n_calls:.4f} ms per call; paged launches "
-        f"{launches}; max_memory_allocated {peak} bytes [{label}]")
-    log(f"serve: generated[0] {done[0].generated}")
-    # Two windows of the run's calls, re-run for ms per step and the
-    # card's busy share: 32 prompt-replay steps of slot 0 from the middle
-    # of its first prompt, and the first 8 batched decode steps (all slots
-    # active).
     mid = (SYS_LEN + USER_LEN) // 2
     replay_w = [(s, t, p) for s, t, p, _ in calls
                 if s == 0 and mid <= int(p[0]) < mid + 32][:32]
@@ -1298,36 +1247,6 @@ def phase_serve(params, cfg, dev):
             f"{kernel_time(activity, 'paged_split_kernel', len(window))} "
             f"[{label}]")
 
-    plain = ServingEngine(cfg, params, device=dev, impl="plain", **SERVE)
-    replay = RoutedReplay(plain, calls)
-    reqs2 = synth_requests(SERVE_REQUESTS, cfg.vocab_size, seed=0,
-                           sys_len=SYS_LEN, user_len=USER_LEN)
-    for r in reqs2:
-        r.max_new_tokens = NEW_TOKENS
-    t0 = time.perf_counter()
-    done2 = plain.run(reqs2)
-    torch.cuda.synchronize()
-    if replay.n != n_calls:
-        raise AssertionError(f"plain replay made {replay.n} of {n_calls} "
-                             f"calls")
-    if dataclasses.asdict(plain.stats) != dataclasses.asdict(st):
-        raise AssertionError(f"EngineStats differ: {plain.stats} vs {st}")
-    if [r.generated for r in done2] != [r.generated for r in done]:
-        raise AssertionError("teacher-forced replay produced other tokens")
-    log(f"serve[plain]: teacher-forced replay of all {n_calls} steps in "
-        f"{time.perf_counter() - t0:.3f} s: logits max_abs_err "
-        f"{replay.max_err}, relative L2 err at most {replay.max_rel} "
-        f"(bounds {MODEL_MAX_ABS}, {MODEL_REL_L2}); the plain argmax "
-        f"differs in {sum(len(lanes) for _, lanes in replay.token_diffs)} "
-        f"of the {sum(c[1].shape[0] for c in calls)}"
-        f" lanes; EngineStats equal")
-    hold((replay.max_err, replay.max_rel), (MODEL_MAX_ABS, MODEL_REL_L2),
-         "serving logits")
-    kept = {"replay": probes["replay"][0],
-            "batched": max(probes["batched"],
-                           key=lambda args: int(args[4].sum()))}
-    del recorder.calls, replay.calls, probes
-    return launches, kept
 
 def capture(fn, n: int):
     """A warmed CUDA graph of ``n`` calls of ``fn()``."""
@@ -1613,8 +1532,8 @@ def train_pipeline(root, vocab, seed, batch=TRAIN_B, seq=TRAIN_S):
 
 
 def on_card(batch, dev):
-    """A pipeline batch (numpy) as card tensors."""
-    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    """A batch (numpy arrays or CPU tensors) as card tensors."""
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
 
 
 def rel_l2(got, want):
@@ -2044,8 +1963,11 @@ class RoutingRecorder:
 
 def agreement(a, b):
     """(share of (token, layer) routings equal in the runs ``a`` and
-    ``b``, {key: (T,) bool equal}) over the keys both recorded."""
+    ``b``, {key: (T,) bool equal}) over the keys both recorded; (1.0,
+    {}) for a model without routed layers."""
     keys = [k for k in a.sig if k in b.sig]
+    if not keys:
+        return 1.0, {}
     same = {k: (a.sig[k] == b.sig[k]).all(-1) for k in keys}
     flat = torch.cat([same[k] for k in keys])
     return float(flat.float().mean()), same
@@ -2061,26 +1983,41 @@ def routing_check(tag, share, floor_share):
             f"less {ROUTING_MARGIN}")
 
 
-def routed_prefill(params, cfg, dev, tag, seed):
-    """``make_prefill_step`` at B 2 x S 4096 through the flash kernel
-    under the routing rule: the plain step's own routing and, at the rows
-    whose last position routed alike in every layer, its logits; the
-    floor (naive against blockwise plain attention); the plain step forced
-    onto the kernel run's experts, all rows. Returns the flash
-    launches."""
-    rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
-        PREFILL_B, PREFILL_S))).to(dev)
+def seeded_fields(cfg, kind, rows, seq, rng):
+    """Seeded CPU tensors of one step's fields at rows x seq, laid out and
+    typed as ``input_specs.batch_shape`` gives them for ``kind`` (train or
+    prefill): ids below the vocabulary in the integer fields, standard
+    normal draws in the others."""
+    fields = batch_shape(cfg, ShapeConfig(kind, kind, seq, rows))
+    return {name: torch.from_numpy(
+                rng.standard_normal(shape, np.float32)
+                if dtype.is_floating_point else
+                rng.integers(0, cfg.vocab_size, shape)).to(dtype)
+            for name, (shape, dtype) in fields.items()}
+
+
+def prefill_check(params, cfg, dev, tag, seed, rows=PREFILL_B):
+    """``make_prefill_step`` at rows x S 4096 through the flash kernel,
+    held against the same step on the plain versions beside the floor
+    (naive against blockwise plain attention). A dense model's logits are
+    held to the model bounds. A routed model goes under the routing rule:
+    the plain step's own routing and, at the rows whose last position
+    routed alike in every layer, its logits; the plain step forced onto
+    the kernel run's experts, all rows, beside the floor forced alike.
+    Returns the flash launches."""
+    inputs = {k: v.to(dev) for k, v in seeded_fields(
+        cfg, "prefill", rows, PREFILL_S, np.random.default_rng(seed)).items()}
     step = make_prefill_step(cfg)
-    step(params, tokens=tokens[:, :256])        # warm up (short)
+    step(params, **{k: v[:, :256] for k, v in inputs.items()})  # warm up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     n_attn = sum(1 for m, _ in cfg.layer_pattern if m == "attn") * \
         cfg.n_periods
+    routed = cfg.moe is not None
     zero_launches()
     with RoutingRecorder() as rk:
         t0 = time.perf_counter()
-        got = step(params, tokens=tokens)
+        got = step(params, **inputs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = flash.LAUNCHES["flash_attention_fwd"]
@@ -2089,51 +2026,68 @@ def routed_prefill(params, cfg, dev, tag, seed):
         raise AssertionError(f"{tag}: flash launched {launches} times (want "
                              f"{n_attn}), paged "
                              f"{paged.LAUNCHES['paged_attention']}")
-    _, pwall, activity = profiled(lambda: step(params, tokens=tokens))
+    _, pwall, activity = profiled(lambda: step(params, **inputs))
     label = card_label()
-    drops = rk.layer_values(rk.drops)
-    aux = rk.layer_values(rk.aux)
-    T = PREFILL_B * PREFILL_S
-    log(f"{tag}: {cfg.name} B={PREFILL_B} S={PREFILL_S}: wall {wall:.6f} "
-        f"s, flash launches {launches}, max_memory_allocated {peak} bytes "
-        f"[{label}]")
+    shapes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in inputs.items())
+    log(f"{tag}: {cfg.name} B={rows} S={PREFILL_S} ({shapes}): wall "
+        f"{wall:.6f} s, flash launches {launches}, max_memory_allocated "
+        f"{peak} bytes [{label}]")
     log(f"{tag}: {share(activity, wall, pwall)}; "
         f"{kernel_time(activity, 'flash_fwd_bf16_kernel')} [{label}]")
-    log(f"{tag}: dropped (token, k) pairs per MoE layer (of "
-        f"{T * cfg.moe.top_k}, capacity "
-        f"{max(1, int(cfg.moe.capacity_factor * cfg.moe.top_k * T / cfg.moe.n_experts))}"
-        f" a expert): {[int(d) for d in drops]}; aux loss {sum(aux):.6f} "
-        f"(per layer {[round(a, 4) for a in aux]})")
+    if routed:
+        drops = rk.layer_values(rk.drops)
+        aux = rk.layer_values(rk.aux)
+        T = rows * PREFILL_S
+        mc = cfg.moe
+        cap = max(1, int(mc.capacity_factor * mc.top_k * T / mc.n_experts))
+        log(f"{tag}: dropped (token, k) pairs per MoE layer (of "
+            f"{T * mc.top_k}, capacity {cap} a expert): "
+            f"{[int(d) for d in drops]}; aux loss "
+            f"{sum(aux):.6f} (per layer {[round(a, 4) for a in aux]})")
 
     plain = make_prefill_step(cfg, impl="plain")
     naive = make_prefill_step(cfg, attention_impl="naive", impl="plain")
+    t0 = time.perf_counter()
     with RoutingRecorder() as rp:
-        want = plain(params, tokens=tokens)
+        want = plain(params, **inputs)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
     with RoutingRecorder() as rn:
-        naive_own = naive(params, tokens=tokens)
+        naive_own = naive(params, **inputs)
+    torch.cuda.synchronize()
+    own_floor = logit_errors(naive_own, want)
+    del naive_own
+    if not routed:
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        log(f"{tag}[plain]: wall {plain_wall:.6f} s; logits "
+            f"{tuple(got.shape)}: kernel vs plain (max_abs_err, relative L2 "
+            f"err) {logit_errors(got, want)} (bounds {MODEL_MAX_ABS}, "
+            f"{MODEL_REL_L2}), argmax agrees at {agree:.6f} of positions; "
+            f"floor (plain naive vs plain blockwise attention) {own_floor}")
+        close_logits(got, want, f"{tag} logits")
+        return launches
     with RoutingRecorder(forced=rk):
-        forced = plain(params, tokens=tokens)
+        forced = plain(params, **inputs)
     with RoutingRecorder(forced=rk):
-        naive_forced = naive(params, tokens=tokens)
+        naive_forced = naive(params, **inputs)
     torch.cuda.synchronize()
     share_k, same_k = agreement(rk, rp)
     share_f, _ = agreement(rn, rp)
     # The last position of each row, held where it routed alike in every
     # layer.
-    last = torch.stack([s.view(PREFILL_B, PREFILL_S)[:, -1]
+    last = torch.stack([s.view(rows, PREFILL_S)[:, -1]
                         for s in same_k.values()]).all(0)
     held = [int(i) for i in torch.nonzero(last).flatten()]
     own = logit_errors(got[held], want[held]) if held else None
     forced_err = logit_errors(got, forced)
     floor = logit_errors(naive_forced, forced)
-    own_floor = logit_errors(naive_own, want)
     bounds = floor_bounds(floor)
     log(f"{tag}[plain]: routings equal to the plain run's {share_k:.6f} of "
         f"(position, layer) pairs, floor (naive vs blockwise plain) "
         f"{share_f:.6f}, margin {ROUTING_MARGIN}; logits (max_abs_err, "
         f"relative L2 err) at the rows whose last position routed alike in "
         f"every layer {held}: {own} (floor, each on its own routing: "
-        f"{own_floor}); on the kernel run's routing, all {PREFILL_B} rows: "
+        f"{own_floor}); on the kernel run's routing, all {rows} rows: "
         f"{forced_err} (floor, both on that routing: {floor}); bounds "
         f"{bounds} (the larger of {MODEL_MAX_ABS}, {MODEL_REL_L2} and "
         f"{FLOOR_FACTOR} x the floor)")
@@ -2161,24 +2115,11 @@ def reference_rounding_attention(q, kp, vp, table, sl, impl="plain"):
     return torch.einsum("bhs,bshd->bhd", p, v)
 
 
-class RoutedRecorder(StepRecorder):
-    """``StepRecorder`` that also numbers each decode_step call for a
-    ``RoutingRecorder``."""
-
-    def __init__(self, engine, router):
-        super().__init__(engine)
-        self.router = router
-
-    def __call__(self, params, tokens, state, pos):
-        self.router.call = len(self.calls)
-        return super().__call__(params, tokens, state, pos)
-
-
 class ReplayDone(Exception):
-    """A ``RoutedReplay`` has replayed the calls it was asked to."""
+    """A ``ForcedReplay`` has replayed the calls it was asked to."""
 
 
-class RoutedReplay:
+class ForcedReplay:
     """Stands in for a plain-version engine's decode step, teacher-forced
     on a kernel run's calls: runs the step, keeps its logits, the largest
     errors against the kernel run's and the calls whose argmax differs
@@ -2233,14 +2174,19 @@ class RoutedReplay:
         return rlogits[:, None, :], state
 
 
-def routed_serve(params, cfg, dev, tag, serve_kw, n_req, sys_len, user_len,
-                 new_tokens):
-    """``ServingEngine`` through the paged kernel under the routing rule:
-    every prompt-replay step must run all lanes; a plain engine replays
-    the run teacher-forced and forced onto its routing (logits held to
-    the bounds at every call, EngineStats equal), recording its own
-    routing; a third engine does the same with the reference's rounding
-    of decode attention, for the floor. Returns the paged launches."""
+def serve_check(params, cfg, dev, tag, serve_kw, n_req, sys_len, user_len,
+                new_tokens, probe_pos=None):
+    """``ServingEngine`` through the paged kernel: a routed model's
+    prompt-replay steps must run all lanes, a dense model's its own lane;
+    a plain engine replays the run teacher-forced, on the kernel run's
+    routing (logits held at every call, EngineStats and tokens equal),
+    recording its own routing; a third engine does the same with the
+    reference's rounding of decode attention, for the floor. A dense
+    model's logits are held to the model bounds, a routed model's under
+    the routing rule. Returns the paged launches, the run's decode_step
+    calls (``StepRecorder.calls``) and, with ``probe_pos``, the first
+    layer's paged inputs of the replay step there ("replay") and of the
+    batched step with the most live positions ("batched")."""
     def requests():
         reqs = synth_requests(n_req, cfg.vocab_size, seed=0,
                               sys_len=sys_len, user_len=user_len)
@@ -2250,25 +2196,44 @@ def routed_serve(params, cfg, dev, tag, serve_kw, n_req, sys_len, user_len,
 
     n_attn = sum(1 for m, _ in cfg.layer_pattern if m == "attn") * \
         cfg.n_periods
+    routed = cfg.moe is not None
     engine = ServingEngine(cfg, params, device=dev, **serve_kw)
+    probes = {}
+    inner = model_attention.paged_decode_attention
+
+    def probe(q, kp, vp, table, sl, impl="kernel"):
+        # The first layer's paged call of the steps ``capture`` names.
+        if recorder.capture:
+            probes.setdefault(recorder.capture, []).append(
+                [x.clone() for x in (q, kp, vp, table, sl)])
+            recorder.capture = None
+        return inner(q, kp, vp, table, sl, impl=impl)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    with RoutingRecorder() as rk:
-        recorder = RoutedRecorder(engine, rk)
-        t0 = time.perf_counter()
-        done = engine.run(requests())
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    model_attention.paged_decode_attention = probe
+    try:
+        with RoutingRecorder() as rk:
+            recorder = StepRecorder(engine, rk, probe_pos)
+            t0 = time.perf_counter()
+            done = engine.run(requests())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        model_attention.paged_decode_attention = inner
     launches = paged.LAUNCHES["paged_attention"]
     peak = torch.cuda.max_memory_allocated()
     calls = recorder.calls
     n_calls = len(calls)
     replay = [c for c in calls if c[0] is not None]
     lanes = {c[1].shape[0] for c in replay}
+    # A routed model replays a prompt on every lane, a dense one on its
+    # own lane alone (ServingEngine).
+    want_lanes = serve_kw["slots"] if engine.all_lane_replay else 1
     if launches != n_attn * n_calls or \
             flash.LAUNCHES["flash_attention_fwd"] or \
-            lanes != {serve_kw["slots"]} or \
+            lanes != {want_lanes} or \
             len(replay) != n_req * (sys_len + user_len):
         raise AssertionError(
             f"{tag}: paged launched {launches} times for {n_calls} calls "
@@ -2289,7 +2254,7 @@ def routed_serve(params, cfg, dev, tag, serve_kw, n_req, sys_len, user_len,
     log(f"{tag}: engine.run {wall:.6f} s wall, {generated} tokens = "
         f"{generated / wall:.3f} generated tokens/s; {n_calls} decode_step "
         f"calls = {1e3 * wall / n_calls:.4f} ms per call; {len(replay)} "
-        f"prompt-replay steps, every one on all {serve_kw['slots']} lanes; "
+        f"prompt-replay steps, every one on {want_lanes} lane(s); "
         f"paged launches {launches}; dropped {drops} of {pairs} routed "
         f"(token, k) pairs; max_memory_allocated {peak} bytes [{label}]")
 
@@ -2305,7 +2270,7 @@ def routed_serve(params, cfg, dev, tag, serve_kw, n_req, sys_len, user_len,
             plain = ServingEngine(cfg, params, device=dev, impl="plain",
                                   **serve_kw)
             with RoutingRecorder(forced=rk) as rr:
-                replayer = RoutedReplay(plain, calls, rr, stop)
+                replayer = ForcedReplay(plain, calls, rr, stop)
                 try:
                     done2 = plain.run(requests())
                 except ReplayDone:
@@ -2338,61 +2303,31 @@ def routed_serve(params, cfg, dev, tag, serve_kw, n_req, sys_len, user_len,
                  if c == n for lane in range(s.numel()) if not bool(s[lane])]
         flips.append(f"call {n} lanes {diff_lanes}: routing flips (layer, "
                      f"lane) {where or 'none (a near-tie of the logits)'}")
-    bounds = floor_bounds((floor_err, floor_rel))
+    if routed:
+        bounds = floor_bounds((floor_err, floor_rel))
+        rule = (f"the larger of {MODEL_MAX_ABS}, {MODEL_REL_L2} and "
+                f"{FLOOR_FACTOR} x the floor")
+    else:
+        bounds, rule = (MODEL_MAX_ABS, MODEL_REL_L2), "the model bounds"
     log(f"{tag}[plain]: teacher-forced replay of all {n_calls} calls on the "
         f"kernel run's routing: logits max_abs_err {plain_replay.max_err}, "
         f"relative L2 err at most {plain_replay.max_rel} (floor, the "
         f"reference's rounding of decode attention against the plain "
         f"version, both on that routing, first {floor_replay.n} calls: "
-        f"{floor_err}, {floor_rel}; bounds "
-        f"{bounds}, the larger of {MODEL_MAX_ABS}, {MODEL_REL_L2} and "
-        f"{FLOOR_FACTOR} x the floor); EngineStats equal; routings equal to "
-        f"the plain run's {share_k:.6f} of (position, layer) pairs, floor "
-        f"{share_f:.6f}, margin {ROUTING_MARGIN}; the plain argmax differs "
-        f"from the served token in {len(flips)} calls"
+        f"{floor_err}, {floor_rel}; bounds {bounds}, {rule}); EngineStats "
+        f"equal; routings equal to the plain run's {share_k:.6f} of "
+        f"(position, layer) pairs, floor {share_f:.6f}, margin "
+        f"{ROUTING_MARGIN}; the plain argmax differs from the served token "
+        f"in {len(flips)} calls"
         + ("" if not flips else ": " + "; ".join(flips[:8])))
     routing_check(tag, share_k, share_f)
     hold((plain_replay.max_err, plain_replay.max_rel), bounds,
          f"{tag} serving logits")
-    return launches
-
-
-def replay_flash_mha(dev, cfg):
-    """The flash forward and backward at deepseek's multi-head shape (B
-    2, S 4096, 16 / 16 heads of 128, causal, bf16): kernel and SDPA
-    times (the backward in a CUDA graph, beside SDPA's backward)."""
-    hd, h = cfg.resolved_head_dim, cfg.n_heads
-    rng = np.random.default_rng(18)
-    q = randn(rng, (PREFILL_B, h, PREFILL_S, hd), torch.bfloat16, dev)
-    k = randn(rng, (PREFILL_B, h, PREFILL_S, hd), torch.bfloat16, dev)
-    v = randn(rng, (PREFILL_B, h, PREFILL_S, hd), torch.bfloat16, dev)
-    got = flash.flash_attention_fwd(q, k, v, causal=True)
-    close(got, attention_ref(q, k, v, causal=True), 2e-2, 2e-2,
-          "flash at the MHA shape")
-    fwd_ms = cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True))
-    fwd_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
-    del q, k, v, got
-    err, (q, k, v, out, lse, dout) = bwd_case(
-        rng, dev, PREFILL_B, PREFILL_S, PREFILL_S, h, h, hd, torch.bfloat16,
-        True)
-    bwd_ms = graph_ms(lambda: flash.flash_attention_bwd(q, k, v, out, lse,
-                                                        dout), n=10)
-    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True)
-    bwd_lib = cuda_ms(lambda: torch.autograd.grad(
-        sdpa, (qs, ks, vs), dout, retain_graph=True))
-    live = PREFILL_B * h * PREFILL_S * (PREFILL_S + 1) // 2
-    log(f"replay[flash MHA]: q/k/v (B {PREFILL_B}, H {h}, S {PREFILL_S}, D "
-        f"{hd}) bf16 causal: forward {fwd_ms:.4f} ms = "
-        f"{4 * hd * live / fwd_ms / 1e9:.1f} TFLOP/s, {fwd_ms / fwd_lib:.3f}"
-        f" x sdpa ({fwd_lib:.4f} ms); backward {bwd_ms:.4f} ms in a CUDA "
-        f"graph = {8 * hd * live / bwd_ms / 1e9:.1f} TFLOP/s, "
-        f"{bwd_ms / bwd_lib:.3f} x sdpa backward ({bwd_lib:.4f} ms), "
-        f"max_abs_err {err} [{card_label()}]")
-    return dict(mha_fwd_ms=fwd_ms, mha_fwd_library_ms=fwd_lib,
-                mha_bwd_graph_ms=bwd_ms, mha_bwd_library_ms=bwd_lib)
+    kept = {} if probe_pos is None else {
+        "replay": probes["replay"][0],
+        "batched": max(probes["batched"],
+                       key=lambda args: int(args[4].sum()))}
+    return launches, calls, kept
 
 
 def active_params(params, cfg):
@@ -2747,7 +2682,7 @@ def phase_ssm(dev, root, seed):
 def phase_moe(dev, seed):
     """deepseek-moe-16b at full width and depth: prefill and serving under
     the routing rule, then the flash kernels at its MHA shape. Returns
-    the launches and the MHA replay's times."""
+    (launches by phase, [(shape, replay rows)])."""
     cfg = get_config(MOE_ARCH)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
@@ -2760,14 +2695,17 @@ def phase_moe(dev, seed):
         f"{cfg.moe.capacity_factor}, {n_params} parameters, random bf16 "
         f"from seed 0 in {time.perf_counter() - t0:.2f} s")
     launches = {"moe-prefill": {"flash_attention_fwd": timed(
-        "moe-prefill", routed_prefill, params, cfg, dev, "moe-prefill", 19)}}
+        "moe-prefill", prefill_check, params, cfg, dev, "moe-prefill", 19)}}
     launches["moe-serve"] = {"paged_attention": timed(
-        "moe-serve", routed_serve, params, cfg, dev, "moe-serve", MOE_SERVE,
-        MOE_REQUESTS, MOE_SYS_LEN, MOE_USER_LEN, MOE_NEW_TOKENS)}
+        "moe-serve", serve_check, params, cfg, dev, "moe-serve", MOE_SERVE,
+        MOE_REQUESTS, MOE_SYS_LEN, MOE_USER_LEN, MOE_NEW_TOKENS)[0]}
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, timed("replay[flash MHA]", replay_flash_mha, dev, cfg)
+    return launches, [timed("replay[flash MHA]", flash_replay, dev, cfg.name,
+                            PREFILL_B, PREFILL_S, cfg.n_heads,
+                            cfg.n_kv_heads, cfg.resolved_head_dim, True,
+                            True)]
 
 
 def phase_jamba(dev):
@@ -2785,15 +2723,355 @@ def phase_jamba(dev):
         f"Mamba d_state {cfg.mamba.d_state}, vocab {cfg.vocab_size}), "
         f"{sum(t.numel() for t in leaves(params))} parameters")
     launches = {"jamba-prefill": {"flash_attention_fwd": timed(
-        "jamba-prefill", routed_prefill, params, cfg, dev, "jamba-prefill",
+        "jamba-prefill", prefill_check, params, cfg, dev, "jamba-prefill",
         22)}}
     launches["jamba-serve"] = {"paged_attention": timed(
-        "jamba-serve", routed_serve, params, cfg, dev, "jamba-serve",
+        "jamba-serve", serve_check, params, cfg, dev, "jamba-serve",
         JAMBA_SERVE, JAMBA_REQUESTS, JAMBA_SYS_LEN, JAMBA_USER_LEN,
-        JAMBA_NEW_TOKENS)}
+        JAMBA_NEW_TOKENS)[0]}
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------- head dims 80 and 192 --
+
+# hubert-xlarge as the repo configures it (48 layers, d_model 1280, 16
+# heads of 80, non-causal, d_ff 5120, vocab 504 masked-unit targets) at
+# full size: prefill and training at B 2 x S 4096 frame embeddings.
+HUBERT_ARCH = "hubert-xlarge"
+HUBERT_STEPS = 2
+# HuBERT's masking (arXiv:2106.07447 §4: spans of 10 frames starting at
+# 8 % of the frames): a masked frame is labelled with a unit id, the
+# others -1 (not counted).
+HUBERT_MASK_PROB, HUBERT_SPAN = 0.08, 10
+# nemotron-4-340b at full width (d_model 18432, 96 / 8 heads of 192,
+# squared-ReLU d_ff 73728, vocab 256000) and 2 of its 96 layers: the 96
+# (about 680 GB in bf16) do not fit one card; 2 layers and the two
+# embedding tables are about 33 GB.
+NEMOTRON_ARCH = "nemotron-4-340b"
+NEMOTRON_LAYERS = 2
+NEMOTRON_SERVE = dict(slots=4, max_len=512, page_size=16, policy="cost")
+NEMOTRON_REQUESTS, NEMOTRON_SYS_LEN, NEMOTRON_USER_LEN, NEMOTRON_NEW = \
+    4, 64, 32, 8
+# The architectures no earlier phase ran on the card at full width: the
+# depth each runs at (None: all of it). phi3.5-moe's 32 layers are about
+# 84 GB in bf16; 8 are about 21 GB. One 8-layer period of
+# jamba-1.5-large-398b is about 88 GB; its first 4 layers (3 Mamba, 1
+# attention, MoE on two) are about 46 GB.
+ARCHS = {"qwen1.5-0.5b": None, "olmo-1b": None, "internvl2-2b": None,
+         "phi3.5-moe-42b-a6.6b": 8, "jamba-1.5-large-398b": 4}
+ARCHS_PREFILL_B = 1
+# The kernel of each part of a replay at a model's shape.
+REPLAY_KERNEL = {"fwd": "flash_attention_fwd", "bwd": "flash_attention_bwd",
+                 "paged": "paged_attention"}
+# The engine's run: 4 requests of 8 shared + 8 own prompt tokens, 8 new
+# each in 4 slots, so 8 batched decode steps.
+ARCHS_SERVE = dict(slots=4, max_len=128, page_size=16, policy="cost")
+ARCHS_REQUESTS, ARCHS_SYS_LEN, ARCHS_USER_LEN, ARCHS_NEW = 4, 8, 8, 8
+
+
+class FrameBatches:
+    """Seeded hubert training batches, laid out as ``seeded_fields`` lays
+    out a train step's: bf16 frame embeddings, and unit ids kept as
+    labels at the masked frames (``HUBERT_MASK_PROB`` span starts of
+    ``HUBERT_SPAN`` frames) and -1 elsewhere."""
+
+    def __init__(self, cfg, seed, batch=PREFILL_B, seq=PREFILL_S):
+        self.rng = np.random.default_rng(seed)
+        self.cfg, self.batch, self.seq = cfg, batch, seq
+
+    def next_batch(self):
+        """One batch of ``{"embeds", "labels"}`` CPU tensors."""
+        b, s = self.batch, self.seq
+        out = seeded_fields(self.cfg, "train", b, s, self.rng)
+        starts = self.rng.random((b, s)) < HUBERT_MASK_PROB
+        masked = np.zeros((b, s), bool)
+        for off in range(HUBERT_SPAN):
+            masked[:, off:] |= starts[:, :s - off]
+        out["labels"] = torch.where(torch.from_numpy(masked), out["labels"],
+                                    -1)
+        return out
+
+
+# The flash forward at a model's shape is also held to a relative L2
+# error of its whole output: at S 4096 a non-causal output's values are
+# about 0.02 (the sum of 4096 near-even shares of N(0, 1) values), as
+# large as the sweep's 2e-2 absolute allowance. Rounding P and the
+# output to bf16 alone gives about 2e-3; a scale of 1/sqrt(128) at D 80
+# or 192 gives about 0.27 (both on the CPU at S 2048).
+FLASH_REPLAY_REL_L2 = 1e-2
+
+
+def flash_replay(dev, tag, b, s, h, hk, d, causal, backward):
+    """The flash forward (and, with ``backward``, the backward) at one
+    model's shape, bf16: against the plain version, then kernel back to
+    back, in a CUDA graph, plain and SDPA times and the bound. Returns
+    (the shape's label, {"fwd": row, "bwd": row})."""
+    rng = np.random.default_rng(30 + d)
+    label = card_label()
+    live = b * h * (s * (s + 1) // 2 if causal else s * s)
+    rows = {}
+    q = randn(rng, (b, h, s, d), torch.bfloat16, dev)
+    k = randn(rng, (b, hk, s, d), torch.bfloat16, dev)
+    v = randn(rng, (b, hk, s, d), torch.bfloat16, dev)
+    got = flash.flash_attention_fwd(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    err = close(got, want, 2e-2, 2e-2, f"{tag} flash forward")
+    rel = rel_l2(got, want)
+    if not rel <= FLASH_REPLAY_REL_L2:
+        raise AssertionError(f"{tag} flash forward: relative L2 err {rel} "
+                             f"beyond {FLASH_REPLAY_REL_L2}")
+    del want
+
+    def fwd():
+        return flash.flash_attention_fwd(q, k, v, causal=causal)
+    ms, in_graph = cuda_ms(fwd), graph_ms(fwd, n=20)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=causal),
+                       reps=2)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True))
+    flops = 4 * d * live
+    nbytes = q.nbytes + k.nbytes + v.nbytes + got.nbytes
+    rows["fwd"] = bound_row(ms, in_graph, plain_ms, lib_ms, err, flops,
+                            nbytes)
+    rows["fwd"]["rel_l2"] = rel
+    log(f"replay[{tag} flash forward]: q {tuple(q.shape)} k/v "
+        f"{tuple(k.shape)} bf16 causal={causal}: kernel {ms:.4f} ms back "
+        f"to back, {in_graph:.4f} ms in a CUDA graph = "
+        f"{flops / in_graph / 1e9:.1f} TFLOP/s, {in_graph / lib_ms:.3f} x "
+        f"sdpa; plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{rows['fwd']['bound_ms']:.6f} ms ({flops} flops, {nbytes} "
+        f"bytes); max_abs_err {err}, relative L2 err {rel} (bound "
+        f"{FLASH_REPLAY_REL_L2}) [{label}]")
+    del q, k, v, got
+    shape = (f"{tag} B{b} S{s} H{h}/{hk} D{d} "
+             f"{'causal' if causal else 'non-causal'}")
+    if not backward:
+        return shape, rows
+    err, (q, k, v, out, lse, dout) = bwd_case(
+        rng, dev, b, s, s, h, hk, d, torch.bfloat16, causal)
+
+    def bwd():
+        return flash.flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal)
+    ms, in_graph = cuda_ms(bwd), graph_ms(bwd, n=10)
+    plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout,
+                                                 causal=causal), reps=2)
+    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=causal, enable_gqa=True)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa, (qs, ks, vs), dout, retain_graph=True))
+    flops = 8 * d * live
+    nbytes = sum(x.nbytes for x in (q, k, v, out, lse, dout)) + \
+        q.nbytes + k.nbytes + v.nbytes
+    rows["bwd"] = bound_row(ms, in_graph, plain_ms, lib_ms, err, flops,
+                            nbytes)
+    log(f"replay[{tag} flash backward]: q {tuple(q.shape)} k/v "
+        f"{tuple(k.shape)} bf16 causal={causal}: kernel {ms:.4f} ms back "
+        f"to back, {in_graph:.4f} ms in a CUDA graph = "
+        f"{flops / in_graph / 1e9:.1f} TFLOP/s, {in_graph / lib_ms:.3f} x "
+        f"sdpa backward; plain {plain_ms:.4f} ms, sdpa backward "
+        f"{lib_ms:.4f} ms, bound {rows['bwd']['bound_ms']:.6f} ms ({flops} "
+        f"flops, {nbytes} bytes); max_abs_err {err} [{label}]")
+    return shape, rows
+
+
+def bound_row(ms, in_graph, plain_ms, lib_ms, err, flops, nbytes):
+    """A replay's numbers with its bound: the larger of ``flops`` at the
+    bf16 peak and ``nbytes`` at the HBM rate."""
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(ms=ms, graph_ms=in_graph, plain_ms=plain_ms,
+                library_ms=lib_ms, max_abs_err=err,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def phase_hubert(dev, seed):
+    """hubert-xlarge at full size: the prefill (non-causal flash at D 80)
+    held against plain, then training (the first step's gradients
+    against the plain step's beside the floor, 1 warm-up and
+    HUBERT_STEPS timed steps), then the flash forward and backward at
+    its shape. Returns (launches by phase, [(shape, replay rows)])."""
+    cfg = get_config(HUBERT_ARCH)
+    label = card_label()
+    params = init_params(cfg, seed=seed, device=dev)
+    names = [n for n, _ in named_leaves(params)]
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"model: {cfg.name} at full size, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim} "
+        f"(non-causal), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{n_params} parameters, random bf16 from seed {seed}")
+    launches = {"hubert-prefill": {"flash_attention_fwd": timed(
+        "hubert-prefill", prefill_check, params, cfg, dev,
+        "hubert-prefill", 23)}}
+
+    batches = FrameBatches(cfg, seed)
+    batch = on_card(batches.next_batch(), dev)
+    router = RoutingRecorder()
+    mk, g_k, wall_k = train_grads(params, cfg, batch, router)
+    mp, g_p, wall_p = train_grads(params, cfg, batch, router, impl="plain")
+    *errs, msg = grad_errors(names, (mk, g_k), (mp, g_p))
+    del g_k
+    saved = model_attention.flash_attention
+    model_attention.flash_attention = autograd_attention_ref
+    try:
+        mf, g_f, _ = train_grads(params, cfg, batch, router, impl="plain")
+    finally:
+        model_attention.flash_attention = saved
+    *_, floor_msg = grad_errors(names, (mf, g_f), (mp, g_p))
+    del g_f, g_p
+    log(f"hubert-train[plain]: first step's gradients of all {len(names)} "
+        f"leaves from one batch ({int((batch['labels'] >= 0).sum())} "
+        f"masked frames of {batch['labels'].numel()}), kernel step vs "
+        f"plain step: {msg}; floor (autograd through attention_ref vs "
+        f"attention_bwd_ref): {floor_msg}; bounds (loss, grad norm, leaf) "
+        f"{TRAIN_BOUNDS}; walls kernel {wall_k:.3f} s, plain {wall_p:.3f} s")
+    if not all(e <= b for e, b in zip(errs, TRAIN_BOUNDS)):
+        raise AssertionError(f"hubert-train: {msg}")
+    del batch
+
+    opt_cfg = OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
+                              total_steps=HUBERT_STEPS + 2)
+    losses, _, walls, train_launches, peak, opt_state, step = timed_steps(
+        "hubert-train", cfg, params, batches, dev, HUBERT_STEPS, opt_cfg)
+    want = {"flash_attention_fwd": 2 * cfg.n_layers * HUBERT_STEPS,
+            "flash_attention_bwd": cfg.n_layers * HUBERT_STEPS}
+    if train_launches != want:
+        raise AssertionError(f"hubert-train: launches {train_launches} "
+                             f"(want {want})")
+    launches["hubert-train"] = train_launches
+    med = float(np.median(walls))
+    tokens = PREFILL_B * PREFILL_S
+    live = PREFILL_B * cfg.n_heads * PREFILL_S * PREFILL_S
+    model_flops = 6 * n_params * tokens
+    attn_flops = 12 * cfg.resolved_head_dim * live * cfg.n_layers
+    mfu = (model_flops + attn_flops) / med / BF16_FLOPS_PER_S
+    log(f"hubert-train: {cfg.name} B={PREFILL_B} S={PREFILL_S}, bf16 "
+        f"params, fp32 AdamW moments, remat per layer, 1 warm-up + "
+        f"{HUBERT_STEPS} timed steps: losses {losses}; step walls "
+        f"{[round(w, 6) for w in walls]} s, median {med:.6f} s = "
+        f"{tokens / med:.1f} frames/s; MFU {mfu:.6f} (6 N T + 12 D per "
+        f"live attention pair, no remat, against {BF16_FLOPS_PER_S:.3e} "
+        f"flop/s); launches {train_launches}; max_memory_allocated {peak} "
+        f"bytes [{label}]")
+
+    batch = on_card(batches.next_batch(), dev)
+
+    def one_step():
+        out = step(params, opt_state, batch)
+        return float(out[2]["loss"])
+
+    t = time.perf_counter()
+    one_step()
+    wall = time.perf_counter() - t
+    _, pwall, activity = profiled(one_step)
+    log(f"hubert-train: one more step {wall:.6f} s, then one under "
+        f"torch.profiler: {share(activity, wall, pwall)}; "
+        f"{kernel_time(activity, 'flash_fwd_bf16_kernel')}; "
+        f"{kernel_time(activity, 'flash_bwd_')} [{label}]")
+    del params, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, [flash_replay(dev, cfg.name, PREFILL_B, PREFILL_S,
+                                   cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim, False, True)]
+
+
+def nemotron_paged_replay(cfg, dev):
+    """The paged kernel at the nemotron serving run's batched call: the
+    engine's 4 slots over the page view of its cache (identity table),
+    every slot at the run's last position."""
+    rng = np.random.default_rng(31)
+    slots, max_len = NEMOTRON_SERVE["slots"], NEMOTRON_SERVE["max_len"]
+    ps = model_attention.page_size_for(max_len)
+    n_pg = max_len // ps
+    hd = cfg.resolved_head_dim
+    live = NEMOTRON_SYS_LEN + NEMOTRON_USER_LEN + NEMOTRON_NEW - 1
+    args = (randn(rng, (slots, cfg.n_heads, hd), torch.bfloat16, dev),
+            randn(rng, (slots * n_pg, ps, cfg.n_kv_heads, hd),
+                  torch.bfloat16, dev),
+            randn(rng, (slots * n_pg, ps, cfg.n_kv_heads, hd),
+                  torch.bfloat16, dev),
+            torch.arange(slots * n_pg, dtype=torch.int32,
+                         device=dev).view(slots, n_pg),
+            torch.full((slots,), live, dtype=torch.int32, device=dev))
+    return replay_paged(args, "nemotron B=4 batched decode", card_label())
+
+
+def phase_nemotron(dev, seed):
+    """nemotron-4-340b at full width and NEMOTRON_LAYERS layers: the
+    prefill (causal flash at D 192, GQA 12) and the engine (the paged
+    kernel at D 192), each held against the plain versions; then the
+    flash kernels and the paged kernel at its shapes. Returns (launches
+    by phase, [(shape, replay rows)])."""
+    cfg = dataclasses.replace(get_config(NEMOTRON_ARCH),
+                              n_layers=NEMOTRON_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    log(f"model: {cfg.name} at full width, {cfg.n_layers} of 96 layers "
+        f"(depth cut: the 96 do not fit one card), d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+        f"{cfg.mlp_type} d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{sum(t.numel() for t in leaves(params))} parameters, random bf16 "
+        f"from seed {seed} in {time.perf_counter() - t0:.2f} s")
+    launches = {"nemotron-prefill": {"flash_attention_fwd": timed(
+        "nemotron-prefill", prefill_check, params, cfg, dev,
+        "nemotron-prefill", 24, ARCHS_PREFILL_B)}}
+    launches["nemotron-serve"] = {"paged_attention": timed(
+        "nemotron-serve", serve_check, params, cfg, dev, "nemotron-serve",
+        NEMOTRON_SERVE, NEMOTRON_REQUESTS, NEMOTRON_SYS_LEN,
+        NEMOTRON_USER_LEN, NEMOTRON_NEW)[0]}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged_shape = (f"{cfg.name} B{NEMOTRON_SERVE['slots']} H{cfg.n_heads}/"
+                   f"{cfg.n_kv_heads} D{cfg.resolved_head_dim} serving call")
+    return launches, [
+        flash_replay(dev, cfg.name, ARCHS_PREFILL_B, PREFILL_S, cfg.n_heads,
+                     cfg.n_kv_heads, cfg.resolved_head_dim, True, True),
+        (paged_shape, {"paged": nemotron_paged_replay(cfg, dev)})]
+
+
+def cut_depth(cfg, layers):
+    """``cfg`` at its first ``layers`` layers (None: all of them); a cut
+    inside the repeating layer pattern keeps that many of its blocks."""
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers, layer_pattern=(
+        cfg.layer_pattern[:min(layers, cfg.period)]))
+
+
+def phase_archs(dev, seed):
+    """Every architecture no earlier phase ran on the card (``ARCHS``), at
+    full width: a prefill at B 1 x S 4096 through the flash kernel and
+    an engine run through the paged kernel, each held against the plain
+    versions (the MoE models under the routing rule). Returns the
+    launches by phase."""
+    launches = {}
+    for n, (arch, layers) in enumerate(ARCHS.items()):
+        cfg = cut_depth(get_config(arch), layers)
+        params = init_params(cfg, seed=seed, device=dev)
+        log(f"model: {cfg.name} at full width, {cfg.n_layers} of "
+            f"{get_config(arch).n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+            f"{sum(t.numel() for t in leaves(params))} parameters, random "
+            f"bf16 from seed {seed}")
+        launches[f"{arch}-prefill"] = {"flash_attention_fwd": timed(
+            f"{arch}-prefill", prefill_check, params, cfg, dev,
+            f"{arch}-prefill", 25 + n, ARCHS_PREFILL_B)}
+        launches[f"{arch}-serve"] = {"paged_attention": timed(
+            f"{arch}-serve", serve_check, params, cfg, dev, f"{arch}-serve",
+            ARCHS_SERVE, ARCHS_REQUESTS, ARCHS_SYS_LEN, ARCHS_USER_LEN,
+            ARCHS_NEW)[0]}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -3028,7 +3306,8 @@ def main(argv=None) -> int:
         log(f"build: {lib.source.name} {lib.info['seconds']:.2f} s "
             f"(built={lib.info['built']}) -> {lib.info['path']}")
         for line in str(lib.info["ptxas"]).splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "C7512")):
                 log(f"build: {line.strip()}")
     fl = flash.LIBRARY.load()
     log("build: flash dynamic shared memory per CTA: " + ", ".join(
@@ -3075,24 +3354,49 @@ def main(argv=None) -> int:
         record += timed("group attn", attention_rows, dev)
     if "train" in groups:
         record += timed("group train", train_rows, dev, args.seed)
-    slice7 = {}
+    # The later phases' launches ({phase: {kernel: launches}}) and the
+    # kernels' replays at model shapes ({kernel: {shape: row}}).
+    phase_launches, shapes = {}, {}
+
+    def file_replays(replays):
+        for shape, parts in replays:
+            for part, row in parts.items():
+                shapes.setdefault(REPLAY_KERNEL[part], {})[shape] = row
+
     if "moe" in groups:
-        launches, mha = phase_moe(dev, args.seed)
-        slice7.update(launches)
+        launches, replays = phase_moe(dev, args.seed)
+        phase_launches.update(launches)
+        file_replays(replays)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
-            slice7["moe-train"] = timed("moe-train", phase_moe_train, dev,
-                                        Path(tmp), args.seed)
+            phase_launches["moe-train"] = timed(
+                "moe-train", phase_moe_train, dev, Path(tmp), args.seed)
     if "ssm" in groups:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as tmp:
             timed("ssm", phase_ssm, dev, Path(tmp), args.seed)
     if "jamba" in groups:
-        slice7.update(phase_jamba(dev))
-    launch = timed("group launch", phase_launch, dev, args.seed) \
-        if "launch" in groups else {}
+        phase_launches.update(phase_jamba(dev))
+    for group, phase in (("hubert", phase_hubert),
+                         ("nemotron", phase_nemotron)):
+        if group in groups:
+            launches, replays = timed(f"group {group}", phase, dev,
+                                      args.seed)
+            phase_launches.update(launches)
+            file_replays(replays)
+    if "archs" in groups:
+        phase_launches.update(timed("group archs", phase_archs, dev,
+                                    args.seed))
+    if "launch" in groups:
+        phase_launches["launch-train"] = timed("group launch", phase_launch,
+                                               dev, args.seed)
     for row in record:
-        add_slice7(row, slice7, mha if "moe" in groups else {})
-        if launch.get(row["name"]):
-            row["launch_train_launches"] = launch[row["name"]]
+        name = row["name"]
+        per_phase = {phase: counts[name]
+                     for phase, counts in phase_launches.items()
+                     if counts.get(name)}
+        if per_phase:
+            row["phase_launches"] = per_phase
+        if shapes.get(name):
+            row["shapes"] = shapes[name]
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": record}))
     print(card_label())
@@ -3116,9 +3420,13 @@ def attention_rows(dev):
         f"{n_params} parameters ({sum(t.nbytes for t in leaves(params))} "
         f"bytes), random bf16 from seed 0 in "
         f"{time.perf_counter() - t0:.2f} s")
-    attn_launches = {"flash_attention_fwd": phase_prefill(params, cfg, dev)}
-    attn_launches["paged_attention"], paged_args = phase_serve(params, cfg,
-                                                               dev)
+    attn_launches = {"flash_attention_fwd": prefill_check(
+        params, cfg, dev, "prefill", 13)}
+    attn_launches["paged_attention"], calls, paged_args = serve_check(
+        params, cfg, dev, "serve", SERVE, SERVE_REQUESTS, SYS_LEN, USER_LEN,
+        NEW_TOKENS, probe_pos=REPLAY_PROBE_POS)
+    serve_windows(params, cfg, dev, calls)
+    del calls
     # The serving phase's engines reach the parameters through reference
     # cycles (their decode step is wrapped by the recorders): collect them
     # so the parameters are freed before the train phase.
@@ -3160,21 +3468,6 @@ def train_rows(dev, seed):
         "library_ms": row["library_ms"],
         "train_fwd_launches": train_launches["flash_attention_fwd"],
         "earlier": "PERF.md §6"}]
-
-
-def add_slice7(row, slice7, mha):
-    """The MoE and SSM slice's launches of a kernel (each phase's counts
-    set to 0 before it and read after) and its times at deepseek's MHA
-    shape, as extra keys of its kernels JSON row."""
-    name = row["name"]
-    per_phase = {phase: counts[name] for phase, counts in slice7.items()
-                 if counts.get(name)}
-    if per_phase:
-        row["slice7_launches"] = per_phase
-    keys = {"flash_attention_fwd": ("mha_fwd_ms", "mha_fwd_library_ms"),
-            "flash_attention_bwd": ("mha_bwd_graph_ms",
-                                    "mha_bwd_library_ms")}.get(name, ())
-    row.update({k: mha[k] for k in keys if k in mha})
 
 
 if __name__ == "__main__":

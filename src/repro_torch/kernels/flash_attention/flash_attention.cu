@@ -42,6 +42,15 @@
 // stores bf16, skipping rows >= Sq. Key columns >= Sk score -1e30.
 // Shared memory at D = 128: Q 32 KB + 2
 // stages x (K 32 KB + V 32 KB) = 160 KB, one CTA per SM.
+// Head dims 80 and 192 (hubert-xlarge, nemotron-4-340b). D = 80 is not a
+// whole number of 64-column atoms: the tensor maps keep the real 80
+// columns (a 160-byte row), the second atom's box reaches past them and
+// TMA fills columns 80-127 with zeros, so the tiles are D = 128's; S
+// takes the 5 real 16-column steps, O is accumulated 128 wide (its
+// padded columns stay 0) and only 80 columns are stored; the scale is
+// 1/sqrt(80). D = 192 is three atoms; its stages hold 64 keys (Tile),
+// S is m64n64k16 and O += P V m64n192k16: Q 48 KB + 2 x (24 + 24) KB =
+// 144 KB.
 //
 // flash_fwd_f32_kernel (float32 q, k, v). The reference's fp32 tolerance
 // (2e-5) rules out TF32 tensor cores, so fp32 stays on the CUDA cores: one
@@ -262,20 +271,25 @@ using namespace hopper;
 
 constexpr int kBQ = 128;            // query rows per CTA
 constexpr int kRowsPerWG = 64;      // query rows per consumer warpgroup
-constexpr int kBK = 128;            // keys per K/V stage
 constexpr int kStages = 2;          // K/V ring depth
 constexpr int kConsumerWarps = 8;   // two warpgroups
 constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer warpgroup
 
-// Tiles of swizzle atoms (hopper.cuh).
+// Tiles of swizzle atoms (hopper.cuh), kPadded columns wide. At D = 192
+// a stage holds 64 keys: Q (48 KB) and two stages of 128-key K and V
+// (4 x 48 KB) would pass the 227 KB a CTA may have, and a 64-key score
+// tile (32 registers a thread) and its bf16 copy (16) beside the O
+// accumulator (96) keep a consumer near D = 128's 64 + 64 + 32.
 template <int D>
 struct Tile {
+  static constexpr int kBK = D > 128 ? 64 : 128;       // keys per K/V stage
   static constexpr int kAtomCols = Atom<D>::kCols;
   static constexpr int kAtomBytes = Atom<D>::kBytes;   // bytes per atom row
   static constexpr int kAtoms = Atom<D>::kCount;
+  static constexpr int kPadded = Atom<D>::kPadded;     // columns in smem
   static constexpr uint64_t kLayout = Atom<D>::kLayout;  // wgmma: 128B / 64B
-  static constexpr uint32_t kQBytes = kBQ * D * 2;
-  static constexpr uint32_t kKVBytes = kBK * D * 2;     // K or V, one stage
+  static constexpr uint32_t kQBytes = kBQ * kPadded * 2;
+  static constexpr uint32_t kKVBytes = kBK * kPadded * 2;  // K or V, a stage
   static constexpr uint32_t kBarrierOffset = kQBytes + 2 * kStages * kKVBytes;
   // + the barriers, + slack to align the base to 1024 bytes.
   static constexpr size_t kSmem = kBarrierOffset + 64 + 1024;
@@ -290,7 +304,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       float* __restrict__ lse, int H, int Hk, int Sq, int Sk,
                       int causal, int q_offset, float scale_log2) {
   using T = Tile<D>;
-  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  constexpr int kBK = T::kBK;
+  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 192,
+                "head dim");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;                               // [atoms][kBQ rows]
@@ -357,9 +373,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   constexpr uint32_t kSbo = 8 * T::kAtomBytes;   // between 8-row groups
   const uint32_t q_wg = sQ + wg * kRowsPerWG * T::kAtomBytes;
 
-  float acc[D / 2];
+  // O over the padded columns: at D = 80 columns 80-127 stay 0 (V's zero
+  // fill) and are not stored.
+  float acc[T::kPadded / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < T::kPadded / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   mbar_wait(q_full, 0);
 
@@ -369,7 +387,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     const uint32_t k_s = sK + s * T::kKVBytes;
     const uint32_t v_s = sV + s * T::kKVBytes;
 
-    // S = Q K^T over D in steps of 16 (both operands K-major).
+    // S = Q K^T over the D real columns in steps of 16 (both operands
+    // K-major).
     float sc[kBK / 2];
     wgmma_fence();
 #pragma unroll
@@ -378,8 +397,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                            (kk * 16 % T::kAtomCols) * 2;
       const uint32_t koff = (kk * 16 / T::kAtomCols) * kBK * T::kAtomBytes +
                             (kk * 16 % T::kAtomCols) * 2;
-      wgmma_ss_n128(sc, make_desc(q_wg + off, 16, kSbo, T::kLayout),
-                    make_desc(k_s + koff, 16, kSbo, T::kLayout), kk > 0);
+      const uint64_t da = make_desc(q_wg + off, 16, kSbo, T::kLayout);
+      const uint64_t db = make_desc(k_s + koff, 16, kSbo, T::kLayout);
+      if constexpr (kBK == 128) wgmma_ss_n128(sc, da, db, kk > 0);
+      else wgmma_ss_n64(sc, da, db, kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -420,7 +441,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rsum[r];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < T::kPadded / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
     // O += P V: P as bf16 A fragments in registers (the accumulator layout
     // of S is the A layout of 16-key slices), V MN-major from shared memory.
@@ -433,7 +454,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_rs<D>(acc, pa[kk],
+      wgmma_rs<T::kPadded>(acc, pa[kk],
                   make_desc(v_s + kk * 16 * T::kAtomBytes,
                             kBK * T::kAtomBytes, kSbo, T::kLayout));
     wgmma_commit();
@@ -443,7 +464,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     if (lane == 0) mbar_arrive(empty0 + 8 * s);   // the stage is free
   }
 
-  // Epilogue: row sums across the quad, normalise, store bf16 rows < Sq.
+  // Epilogue: row sums across the quad, normalise, store bf16 rows < Sq
+  // and their D real columns.
   __nv_bfloat16* ob = o + static_cast<int64_t>(bh) * Sq * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -478,8 +500,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap qm, km, vm;
   int bad = encode<D>(&qm, q, Sq, B * H, kBQ);
-  if (!bad) bad = encode<D>(&km, k, Sk, B * Hk, kBK);
-  if (!bad) bad = encode<D>(&vm, v, Sk, B * Hk, kBK);
+  if (!bad) bad = encode<D>(&km, k, Sk, B * Hk, T::kBK);
+  if (!bad) bad = encode<D>(&vm, v, Sk, B * Hk, T::kBK);
   if (bad) return bad;
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_fwd_bf16_kernel<D><<<grid, kThreads, T::kSmem, stream>>>(
@@ -502,13 +524,17 @@ int64_t flash_smem_bytes(int dtype, int D) {
     switch (D) {
       case 32: return f32::smem_bytes<32>();
       case 64: return f32::smem_bytes<64>();
+      case 80: return f32::smem_bytes<80>();
       case 128: return f32::smem_bytes<128>();
+      case 192: return f32::smem_bytes<192>();
     }
   } else if (dtype == 1) {
     switch (D) {
       case 32: return bf16::Tile<32>::kSmem;
       case 64: return bf16::Tile<64>::kSmem;
+      case 80: return bf16::Tile<80>::kSmem;
       case 128: return bf16::Tile<128>::kSmem;
+      case 192: return bf16::Tile<192>::kSmem;
     }
   }
   return -1;
@@ -530,13 +556,17 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
     switch (D) {
       case 32: return f32::launch<32>(REPRO_FLASH_ARGS);
       case 64: return f32::launch<64>(REPRO_FLASH_ARGS);
+      case 80: return f32::launch<80>(REPRO_FLASH_ARGS);
       case 128: return f32::launch<128>(REPRO_FLASH_ARGS);
+      case 192: return f32::launch<192>(REPRO_FLASH_ARGS);
     }
   } else if (dtype == 1) {
     switch (D) {
       case 32: return bf16::launch<32>(REPRO_FLASH_ARGS);
       case 64: return bf16::launch<64>(REPRO_FLASH_ARGS);
+      case 80: return bf16::launch<80>(REPRO_FLASH_ARGS);
       case 128: return bf16::launch<128>(REPRO_FLASH_ARGS);
+      case 192: return bf16::launch<192>(REPRO_FLASH_ARGS);
     }
   }
 #undef REPRO_FLASH_ARGS

@@ -56,7 +56,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 IMPLS = ("kernel", "plain")
 
 #: Head dims both CUDA kernels are instantiated for.
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128, 192)
 
 #: Kernel name -> launches so far (bumped only where the kernel launches).
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,

@@ -419,6 +419,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Shared memory at D = 128: dK/dV 2 x 16 KB once + 2 stages x (2 x 16 KB +
 // 8 KB of P) + 1 KB of lse and delta rows = 113 KB; dQ 2 x 32 KB once +
 // 2 stages x 2 x 16 KB = 128 KB; one CTA per SM.
+// Head dims 80 and 192 (hubert-xlarge, nemotron-4-340b), as the forward
+// takes them: at D = 80 the tiles are D = 128's, the tensor maps' zero
+// fill past the 80 real columns, the score products take the 5 real
+// 16-column steps and the gradients are accumulated 128 wide and stored
+// 80 wide; at D = 192 (three atoms) a consumer holds a 96-register
+// gradient, the gradient products are m64n192k16, and shared memory is
+// dK/dV 161 KB, dQ 193 KB.
 namespace wg {
 
 using namespace hopper;
@@ -431,15 +438,16 @@ constexpr int kConsumerWarps = 8;    // two warpgroups
 constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The shared-memory layout of both kernels: two tiles of kOnce rows
+// The shared-memory layout of both kernels (tiles Atom<D>::kPadded columns
+// wide): two tiles of kOnce rows
 // loaded once, then kStages x two tiles of kRows rows; in the dK/dV
 // kernel then kStages x P (the 16 bf16-pair words of each of a
 // warpgroup's 128 threads, word i of every thread in row i) and kStages x
 // (lse * log2(e), delta) of kRows query rows; then the mbarriers.
 template <int D, int kOnce, bool kDkdv>
 struct Smem {
-  static constexpr uint32_t kTileBytes = kOnce * D * 2;
-  static constexpr uint32_t kStageBytes = kRows * D * 2;
+  static constexpr uint32_t kTileBytes = kOnce * Atom<D>::kPadded * 2;
+  static constexpr uint32_t kStageBytes = kRows * Atom<D>::kPadded * 2;
   static constexpr uint32_t kPOffset =
       2 * kTileBytes + 2 * kStages * kStageBytes;
   static constexpr uint32_t kPWords = 16 * 128;    // a stage's P
@@ -480,9 +488,9 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int row0,
   return make_desc(tile + off, 16, 8 * A::kBytes, A::kLayout);
 }
 
-// MN-major B operand: rows 16 kk .. 16 kk + 15 (the reduction) and all D
-// columns of a tile of `rows` rows; the atoms along D lie `rows` rows
-// apart.
+// MN-major B operand: rows 16 kk .. 16 kk + 15 (the reduction) and all
+// kPadded columns of a tile of `rows` rows; the atoms along D lie `rows`
+// rows apart.
 template <int D>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
   using A = Atom<D>;
@@ -500,11 +508,12 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
       a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
 }
 
-// Rows `row` and row + 8 of a 64 x D accumulator into a (rows, D) bf16
-// matrix; rows >= n are not stored.
+// Rows `row` and row + 8 of a 64 x kPadded accumulator into a (rows, D)
+// bf16 matrix: its D real columns; rows >= n are not stored.
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 2],
-                                           int row, int c0, int n) {
+__device__ __forceinline__ void store_rows(
+    bf16* dst, const float (&acc)[Atom<D>::kPadded / 2], int row, int c0,
+    int n) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int g = row + 8 * r;
@@ -529,7 +538,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             int H, int Hk, int Sq, int Sk, int causal,
                             int q_offset, float sm_scale) {
   using L = DkdvSmem<D>;
-  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 192,
+                "head dim");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -609,9 +619,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int c0 = 2 * (lane % 4);
   const float scale_log2 = sm_scale * kLog2e;
 
-  float acc[D / 2];   // dV (warpgroup 0) or dK (warpgroup 1)
+  constexpr int kPadded = Atom<D>::kPadded;
+  float acc[kPadded / 2];   // dV (warpgroup 0) or dK (warpgroup 1)
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kPadded / 2; ++i) acc[i] = 0.f;
   mbar_wait(kv_full, 0);
 
   // A stage's gradient product is left in flight while the next stage's
@@ -680,7 +691,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(acc, pa[kk], desc_mn<D>(wg == 0 ? g_s : q_s, kRows, kk));
+      wgmma_rs<kPadded>(acc, pa[kk],
+                        desc_mn<D>(wg == 0 ? g_s : q_s, kRows, kk));
     wgmma_commit();
     held = s;
   }
@@ -704,7 +716,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           bf16* __restrict__ dq, int H, int Hk, int Sq,
                           int Sk, int causal, int q_offset, float sm_scale) {
   using L = DqSmem<D>;
-  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 192,
+                "head dim");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;                          // [atoms][kTile rows]
@@ -778,9 +791,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (causal && row_wg < Sq)
     wg_end = min(Sk, min(row_wg + kRows, Sq) + q_offset);
 
-  float acc[D / 2];
+  constexpr int kPadded = Atom<D>::kPadded;
+  float acc[kPadded / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kPadded / 2; ++i) acc[i] = 0.f;
   mbar_wait(q_full, 0);
 
   // A stage's dQ product is left in flight while the next stage's S is
@@ -846,7 +860,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<D>(acc, da[kk], desc_mn<D>(k_s, kRows, kk));
+        wgmma_rs<kPadded>(acc, da[kk], desc_mn<D>(k_s, kRows, kk));
       wgmma_commit();
       held = s;
     } else {
@@ -955,17 +969,25 @@ int64_t flash_bwd_smem_bytes(int dtype, int which, int D) {
         return which == 0 ? wg::DkdvSmem<32>::kSmem : wg::DqSmem<32>::kSmem;
       case 64:
         return which == 0 ? wg::DkdvSmem<64>::kSmem : wg::DqSmem<64>::kSmem;
+      case 80:
+        return which == 0 ? wg::DkdvSmem<80>::kSmem : wg::DqSmem<80>::kSmem;
       case 128:
         return which == 0 ? wg::DkdvSmem<128>::kSmem
                           : wg::DqSmem<128>::kSmem;
+      case 192:
+        return which == 0 ? wg::DkdvSmem<192>::kSmem
+                          : wg::DqSmem<192>::kSmem;
     }
     return -1;
   }
   switch (D) {
     case 32: return which == 0 ? dkdv_smem_bytes<32>() : dq_smem_bytes<32>();
     case 64: return which == 0 ? dkdv_smem_bytes<64>() : dq_smem_bytes<64>();
+    case 80: return which == 0 ? dkdv_smem_bytes<80>() : dq_smem_bytes<80>();
     case 128:
       return which == 0 ? dkdv_smem_bytes<128>() : dq_smem_bytes<128>();
+    case 192:
+      return which == 0 ? dkdv_smem_bytes<192>() : dq_smem_bytes<192>();
   }
   return -1;
 }
@@ -987,13 +1009,17 @@ int flash_bwd_launch(const void* q, const void* k, const void* v,
     switch (D) {
       case 32: return launch<float, 32>(REPRO_BWD_ARGS);
       case 64: return launch<float, 64>(REPRO_BWD_ARGS);
+      case 80: return launch<float, 80>(REPRO_BWD_ARGS);
       case 128: return launch<float, 128>(REPRO_BWD_ARGS);
+      case 192: return launch<float, 192>(REPRO_BWD_ARGS);
     }
   } else if (dtype == 1) {
     switch (D) {
       case 32: return launch<__nv_bfloat16, 32>(REPRO_BWD_ARGS);
       case 64: return launch<__nv_bfloat16, 64>(REPRO_BWD_ARGS);
+      case 80: return launch<__nv_bfloat16, 80>(REPRO_BWD_ARGS);
       case 128: return launch<__nv_bfloat16, 128>(REPRO_BWD_ARGS);
+      case 192: return launch<__nv_bfloat16, 192>(REPRO_BWD_ARGS);
     }
   }
 #undef REPRO_BWD_ARGS

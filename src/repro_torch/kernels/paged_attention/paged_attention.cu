@@ -13,9 +13,9 @@
 // The n_pos positions a request visits are cut into n_eff = min(n_split,
 // ceil(n_pos / min_len)) contiguous ranges of ceil(n_pos / n_eff); CTA s of
 // the cluster takes range s (ranges past n_eff are empty). Inside a CTA of
-// 128 threads, D / (16 bytes of elements) lanes share one position: each
-// lane loads its 16-byte slice of the K and V rows that the page table
-// names (every row read once for all the CTA's query heads), the lanes
+// 128 threads, a group of kL lanes shares one position: each lane loads
+// its 16-byte slices of the K and V rows that the page table names (every
+// row read once for all the CTA's query heads), the lanes
 // reduce the dot products with shuffles, and every group of lanes keeps
 // its own fp32 (m, l, acc) per query head with an online softmax over its
 // positions, several rows' loads in flight at once. The groups merge by
@@ -52,13 +52,12 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSplits = 8;      // the portable cluster size
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 
-// 16 bytes of T from global memory, as floats.
-__device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
+// 16 bytes of T from global memory, as floats into f[0 ..].
+__device__ __forceinline__ void load16(const float* p, float* f) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
   f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p,
-                                       float (&f)[8]) {
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
   const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
@@ -75,6 +74,25 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+// How the lanes of a warp cover a head row of D elements of T: kV
+// vectors of 16 bytes a lane, kL lanes a position (a power of two, so the
+// positions of a warp step tile its 32 lanes). A row of kVec vectors that
+// kL lanes do not split evenly (D = 80 and 192 in bf16: 10 and 24
+// vectors over 16 and 32 lanes; D = 80 in fp32: 20 over 32) leaves the
+// last lanes' vectors past the row: they load nothing, hold zeros and
+// store nothing. fp32 at D = 192 (48 vectors) takes two a lane.
+template <typename T, int D>
+struct Lanes {
+  static constexpr int kE = 16 / sizeof(T);   // elements per vector
+  static constexpr int kVec = D / kE;         // vectors per row
+  static constexpr int kV = (kVec + 31) / 32; // vectors per lane
+  static constexpr int kNeed = (kVec + kV - 1) / kV;
+  static constexpr int kL = kNeed <= 1 ? 1 : kNeed <= 2 ? 2 : kNeed <= 4 ? 4
+                            : kNeed <= 8 ? 8 : kNeed <= 16 ? 16 : 32;
+  static constexpr int kEL = kV * kE;         // elements per lane
+  static_assert(D % kE == 0 && kVec <= 32 * kV, "head dim");
+};
+
 template <typename T, int D, int R>
 __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -83,11 +101,13 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const int32_t* __restrict__ seq_lens, T* __restrict__ out,
                    int H, int Hk, int PS, int maxp, int n_chunks, int min_len,
                    float sm_scale) {
-  constexpr int kE = 16 / sizeof(T);   // elements per lane (one load)
-  constexpr int kL = D / kE;           // lanes per position
+  using LN = Lanes<T, D>;
+  constexpr int kE = LN::kE;           // elements per vector
+  constexpr int kV = LN::kV;           // vectors per lane
+  constexpr int kL = LN::kL;           // lanes per position
+  constexpr int kEL = LN::kEL;         // elements per lane
   constexpr int kP = 32 / kL;          // positions per warp step
   constexpr int kU = R >= 8 ? 2 : 4;   // steps whose loads are in flight
-  static_assert(kL >= 1 && kL <= 32 && 32 % kL == 0, "head dim");
   __shared__ float w_acc[kWarps][R][D];
   __shared__ float w_m[kWarps][R], w_l[kWarps][R];
   __shared__ float c_acc[R][D];   // this CTA's partial, read by the cluster
@@ -102,20 +122,28 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int nr = min(R, g * rep + rep - h0);    // query heads of this CTA
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int slot = lane / kL, sub = lane % kL;
+  // Vector v of this lane is vector sub + kL v of the row (its elements
+  // kE (sub + kL v) ..), and lies in the row when below kVec.
+  bool vin[kV];
+#pragma unroll
+  for (int v = 0; v < kV; ++v) vin[v] = sub + kL * v < LN::kVec;
 
-  float qr[R][kE];
+  float qr[R][kEL];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (r < nr) {
-      load16(q + (static_cast<int64_t>(b) * H + h0 + r) * D + sub * kE,
-             qr[r]);
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int e = 0; e < kE; ++e) qr[r][e] *= sm_scale;
-    } else {
+    for (int v = 0; v < kV; ++v) {
+      float* x = &qr[r][v * kE];
+      if (r < nr && vin[v]) {
+        load16(q + (static_cast<int64_t>(b) * H + h0 + r) * D +
+                   (sub + kL * v) * kE, x);
 #pragma unroll
-      for (int e = 0; e < kE; ++e) qr[r][e] = 0.f;
+        for (int e = 0; e < kE; ++e) x[e] *= sm_scale;
+      } else {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) x[e] = 0.f;
+      }
     }
-  }
 
   const int total = maxp * PS;
   const int sl = seq_lens[b];
@@ -126,31 +154,37 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int p_begin = split * len;
   const int p_end = min(n_pos, p_begin + len);
 
-  float m[R], l[R], acc[R][kE];
+  float m[R], l[R], acc[R][kEL];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < kE; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < kEL; ++e) acc[r][e] = 0.f;
   }
   const int32_t* row = table + static_cast<int64_t>(b) * maxp;
   constexpr int kStep = kWarps * kP;
   // The loop bound is uniform in the warp, so every lane takes part in
   // the shuffles; a lane past p_end loads nothing and updates nothing.
   for (int p0 = p_begin + warp * kP; p0 < p_end; p0 += kU * kStep) {
-    float kf[kU][kE], vf[kU][kE];
+    float kf[kU][kEL], vf[kU][kEL];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const int p = p0 + u * kStep + slot;
-      if (p < p_end) {
-        const int64_t page = row[p / PS];
-        const int64_t off = ((page * PS + p % PS) * Hk + g) * D + sub * kE;
-        load16(kp + off, kf[u]);
-        load16(vp + off, vf[u]);
-      } else {
+      const int64_t page = p < p_end ? row[p / PS] : 0;
+      const int64_t off = ((page * PS + p % PS) * Hk + g) * D;
 #pragma unroll
-        for (int e = 0; e < kE; ++e) kf[u][e] = vf[u][e] = 0.f;
+      for (int v = 0; v < kV; ++v) {
+        float* kx = &kf[u][v * kE];
+        float* vx = &vf[u][v * kE];
+        if (p < p_end && vin[v]) {
+          const int64_t at = off + (sub + kL * v) * kE;
+          load16(kp + at, kx);
+          load16(vp + at, vx);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kE; ++e) kx[e] = vx[e] = 0.f;
+        }
       }
     }
 #pragma unroll
@@ -161,7 +195,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         if (r >= nr) continue;
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < kE; ++e) dot = fmaf(qr[r][e], kf[u][e], dot);
+        for (int e = 0; e < kEL; ++e) dot = fmaf(qr[r][e], kf[u][e], dot);
 #pragma unroll
         for (int o = kL / 2; o > 0; o >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, o);
@@ -172,7 +206,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         l[r] = l[r] * c + pw;
         m[r] = mn;
 #pragma unroll
-        for (int e = 0; e < kE; ++e)
+        for (int e = 0; e < kEL; ++e)
           acc[r][e] = fmaf(pw, vf[u][e], acc[r][e] * c);
       }
     }
@@ -189,7 +223,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const float mn = fmaxf(m[r], m2);
       const float c1 = expf(m[r] - mn), c2 = expf(m2 - mn);
 #pragma unroll
-      for (int e = 0; e < kE; ++e) {
+      for (int e = 0; e < kEL; ++e) {
         const float a2 = __shfl_xor_sync(0xffffffffu, acc[r][e], o);
         acc[r][e] = acc[r][e] * c1 + a2 * c2;
       }
@@ -201,7 +235,11 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
 #pragma unroll
-      for (int e = 0; e < kE; ++e) w_acc[warp][r][sub * kE + e] = acc[r][e];
+      for (int v = 0; v < kV; ++v)
+        if (vin[v])
+#pragma unroll
+          for (int e = 0; e < kE; ++e)
+            w_acc[warp][r][(sub + kL * v) * kE + e] = acc[r][v * kE + e];
       if (sub == 0) {
         w_m[warp][r] = m[r];
         w_l[warp][r] = l[r];
@@ -307,7 +345,9 @@ int launch_d(int D, const void* q, const void* kp, const void* vp,
   switch (D) {
     case 32: return launch_r<T, 32>(REPRO_PAGED_ARGS);
     case 64: return launch_r<T, 64>(REPRO_PAGED_ARGS);
+    case 80: return launch_r<T, 80>(REPRO_PAGED_ARGS);
     case 128: return launch_r<T, 128>(REPRO_PAGED_ARGS);
+    case 192: return launch_r<T, 192>(REPRO_PAGED_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_PAGED_ARGS

@@ -41,7 +41,7 @@ from repro_torch.kernels.paged_attention.ref import (NEG_INF,
 IMPLS = ("kernel", "plain")
 
 #: Head dims the CUDA kernel is instantiated for.
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128, 192)
 
 #: Kernel name -> launches so far (bumped only where the kernel launches).
 LAUNCHES: Dict[str, int] = {"paged_attention": 0}

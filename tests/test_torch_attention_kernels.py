@@ -110,6 +110,39 @@ def test_flash_gqa_ratios(J, h, hk):
     np.testing.assert_allclose(f32(got), f32(want), rtol=2e-5, atol=2e-5)
 
 
+# The head dims of hubert-xlarge (1280 / 16 = 80) and nemotron-4-340b
+# (18432 / 96 = 192), which the CUDA kernels take beside 32, 64 and 128.
+NEW_HEAD_DIMS = (80, 192)
+
+
+@pytest.mark.parametrize("d", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("h,hk", [(4, 4), (24, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_new_head_dims_match_pallas(J, d, h, hk, causal):
+    """The plain version against the reference's Pallas
+    ``flash_attention_fwd`` (interpret mode) at head dims 80 and 192:
+    MHA and a GQA group of 12, causal and not."""
+    qkv = [heads_first(x) for x in make_qkv(50 + d, 1, 128, 128, h, hk, d)]
+    got = tflash.flash_attention_fwd(*(tt(x) for x in qkv), causal=causal,
+                                     bq=64, bk=64)
+    want = J.flash_fwd(*(J.arr(x) for x in qkv), causal=causal, bq=64,
+                       bk=64)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=2e-5, atol=2e-5)
+
+
+def test_every_attention_head_dim_has_a_kernel():
+    """Every architecture with an attention mixer has a head dim that both
+    CUDA wrappers take, so none of them falls outside the kernels on the
+    card."""
+    from repro_torch.configs import get, list_archs
+    dims = {a: get(a).resolved_head_dim for a in list_archs()
+            if get(a).uses_attention}
+    assert dims, "no attention architecture"
+    missing = {a: d for a, d in dims.items()
+               if d not in tflash.HEAD_DIMS or d not in tpaged.HEAD_DIMS}
+    assert not missing, f"head dims without a kernel: {missing}"
+
+
 def test_flash_block_size_invariance(J):
     qkv = make_qkv(2, 1, 256, 256, 2, 2, 64)
     t = [tt(x) for x in qkv]
@@ -203,7 +236,11 @@ def jax_blockwise_vjp(qkv, dout, causal, dtype):
 BWD_CASES = [  # (b, s, h, hk, d, causal): GQA rep 1 and 3, padded S
     (2, 128, 4, 4, 32, True), (1, 130, 6, 2, 32, True),
     (2, 256, 3, 1, 64, False), (1, 200, 4, 4, 16, False),
-    (1, 300, 6, 2, 32, True)]
+    (1, 300, 6, 2, 32, True),
+    # head dims 80 (non-causal MHA, as hubert-xlarge) and 192 (causal GQA
+    # 12, as nemotron-4-340b), and each the other way
+    (1, 128, 4, 4, 80, False), (1, 130, 24, 2, 80, True),
+    (1, 130, 24, 2, 192, True), (1, 128, 4, 4, 192, False)]
 
 
 @pytest.mark.parametrize("b,s,h,hk,d,causal", BWD_CASES)
@@ -367,6 +404,20 @@ def test_paged_bfloat16(J, h, hk, d):
     check_paged(J, make_paged(3, 2, h, hk, d, 32, 16, 2), 3e-2, "bfloat16")
 
 
+@pytest.mark.parametrize("d", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 3e-2)])
+def test_paged_new_head_dims_match_pallas(J, d, dtype, tol):
+    """The paged wrapper (plain version) and its split arithmetic against
+    the reference's Pallas ``paged_attention`` at head dims 80 and 192,
+    a GQA group of 12, ragged lengths."""
+    inputs = make_paged(60 + d, 3, 24, 2, d, 32, 16, 4, lens=[1, 40, 64])
+    got = check_paged(J, inputs, tol, dtype)
+    split = tpaged.paged_attention_split_plain(
+        *(tt(x, dtype) for x in inputs), tpaged.MAX_SPLITS, 1)
+    np.testing.assert_allclose(f32(split), f32(got), rtol=tol, atol=tol)
+
+
 def test_paged_contract():
     """Malformed inputs raise before any computation."""
     q, kp, vp, table, lens = (tt(x) for x in make_paged(4, 2, 4, 2, 32, 8,
@@ -445,16 +496,22 @@ def test_flash_kernel_on_card():
 @pytest.mark.cuda
 def test_paged_kernel_on_card():
     """The CUDA paged kernel equals its plain version on the card,
-    seq_len = 0 included; an out-of-pool table entry raises."""
+    seq_len = 0 included, at head dim 128 and at 80 and 192 with a GQA
+    group of 12 (two CTAs of query heads a KV head), at every split
+    count; an out-of-pool table entry raises."""
     _need_card()
-    for dtype, tol in (("float32", 2e-5), ("bfloat16", 3e-2)):
-        t = [tt(x, dtype).cuda()
-             for x in make_paged(7, 4, 24, 8, 128, 64, 16, 4,
-                                 lens=[0, 1, 33, 64])]
-        got = tpaged.paged_attention(*t)
-        want = tpaged.paged_attention(*t, impl="plain")
-        torch.cuda.synchronize()
-        np.testing.assert_allclose(f32(got), f32(want), rtol=tol, atol=tol)
+    for h, hk, d in ((24, 8, 128), (24, 2, 80), (24, 2, 192)):
+        for dtype, tol in (("float32", 2e-5), ("bfloat16", 3e-2)):
+            t = [tt(x, dtype).cuda()
+                 for x in make_paged(7, 4, h, hk, d, 64, 16, 4,
+                                     lens=[0, 1, 33, 64])]
+            want = tpaged.paged_attention(*t, impl="plain")
+            for got in [tpaged.paged_attention(*t)] + [
+                    _launch_split(t, n)
+                    for n in range(1, tpaged.MAX_SPLITS + 1)]:
+                torch.cuda.synchronize()
+                np.testing.assert_allclose(f32(got), f32(want), rtol=tol,
+                                           atol=tol, err_msg=f"D{d}")
     t[3][0, 0] = 64
     with pytest.raises(ValueError, match="outside"):
         tpaged.paged_attention(*t)

@@ -52,6 +52,8 @@ from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve import serve_step as tserve  # noqa: E402
+from repro_torch.train import train_step as tstep  # noqa: E402
+from repro_torch.train.tree import named_leaves  # noqa: E402
 
 ATTN_DENSE = ["qwen1.5-0.5b", "llama3.2-3b", "olmo-1b", "nemotron-4-340b",
               "internvl2-2b", "hubert-xlarge"]
@@ -675,3 +677,89 @@ def test_prefill_and_serve_steps_match(arch):
             tp, ttok, tstate, torch.full((B,), t, dtype=torch.int32))
         assert ttok.dtype == torch.int32 and tuple(ttok.shape) == (B, 1)
         np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+
+
+# ------------------------------------------------- the kernels' head dims
+#
+# ``reduced`` gives every attention architecture head dim 16. These keep
+# the two head dims the CUDA kernels added for the full-size configs, at
+# reduced depth: hubert-xlarge's 80 (d_model 320: 4 heads of 80,
+# encoder-only, so non-causal) and nemotron-4-340b's 192 (d_model 768: 4
+# heads of 192 over 1 KV head). Tolerances as above.
+HEAD_DIM_MODELS = {"hubert-xlarge": 320, "nemotron-4-340b": 768}
+
+
+def head_dim_params(arch, dtype, seed=0):
+    """``both_params`` at the d_model of ``HEAD_DIM_MODELS``."""
+    jd, _, _ = DTYPES[dtype]
+    jcfg = jreduced(jget(arch), d_model=HEAD_DIM_MODELS[arch])
+    tcfg = reduced(get(arch), d_model=HEAD_DIM_MODELS[arch])
+    assert tcfg.resolved_head_dim == jcfg.resolved_head_dim == \
+        HEAD_DIM_MODELS[arch] // 4
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(seed), dtype=jd)
+    return jcfg, tcfg, jp, params_from_numpy(
+        tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+
+
+# hubert is embedding-fed: bf16 only (see FORWARD_CASES).
+@pytest.mark.parametrize("arch,dtype", [("hubert-xlarge", "bfloat16"),
+                                        ("nemotron-4-340b", "float32"),
+                                        ("nemotron-4-340b", "bfloat16")])
+def test_forward_matches_at_kernel_head_dims(arch, dtype):
+    """The blockwise (flash) path's logits against the reference's at
+    head dims 80 (non-causal) and 192 (causal, GQA 4)."""
+    jcfg, tcfg, jp, tp = head_dim_params(arch, dtype)
+    tokens, embeds = inputs(tcfg)
+    want, _ = jmodel.forward(jp, jcfg, tokens=as_j(tokens),
+                             embeds=as_j(embeds), attention_impl="blockwise")
+    got, _ = tmodel.forward(tp, tcfg, tokens=as_t(tokens),
+                            embeds=as_t(embeds), attention_impl="blockwise")
+    assert tuple(got.shape) == (B, S, tcfg.vocab_size)
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(f32(got), f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_matches_at_head_dim_192(dtype):
+    """Four teacher-forced decode steps of nemotron-4-340b at head dim 192
+    through the paged path, against the reference's."""
+    jcfg, tcfg, jp, tp = head_dim_params("nemotron-4-340b", dtype)
+    tokens = np.random.default_rng(11).integers(0, tcfg.vocab_size, (B, 4))
+    want, got = run_decode(jp, jcfg, tp, tcfg, tokens)
+    tol = DECODE_BF16_TOL if dtype == "bfloat16" else DTYPES[dtype][2]
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_train_step_matches_at_head_dim_80():
+    """One hubert-xlarge train step at head dim 80 (bf16, masked-unit
+    labels): the loss and every gradient leaf, through the non-causal
+    flash forward and backward, against the reference's
+    ``jax.value_and_grad`` of its loss (bf16 slack: 5e-2 of each leaf's
+    largest magnitude)."""
+    import repro.core  # noqa: F401  (the reference's import order)
+    from repro.train import train_step as jstep
+    jcfg, tcfg, jp, tp = head_dim_params("hubert-xlarge", "bfloat16")
+    _, embeds = inputs(tcfg, seed=3)
+    labels = np.random.default_rng(4).integers(0, tcfg.vocab_size, (B, S))
+    labels[:, ::5] = -1
+    labels = labels.astype(np.int32)
+    (_, jmet), jgrads = jax.value_and_grad(
+        lambda p: jstep.loss_fn(p, jcfg, {"embeds": as_j(embeds),
+                                          "labels": jnp.asarray(labels)},
+                                attention_impl="blockwise"),
+        has_aux=True)(jp)
+    tmet, tgrads = tstep.value_and_grad(
+        tp, lambda p, batch: tstep.loss_fn(p, tcfg, batch,
+                                           attention_impl="blockwise"),
+        {"embeds": as_t(embeds), "labels": torch.from_numpy(labels)})
+    tol = DTYPES["bfloat16"][2]
+    assert float(tmet["loss"]) == pytest.approx(float(jmet["loss"]),
+                                                rel=1e-2)
+    want = params_from_numpy(tcfg, jax.tree.map(np.asarray, jgrads),
+                             device="cpu", dtype=torch.float32)
+    assert [n for n, _ in named_leaves(want)] == \
+        [n for n, _ in named_leaves(tp)]
+    for (name, w), g in zip(named_leaves(want), tgrads):
+        assert tuple(g.shape) == tuple(w.shape), name
+        scale = max(float(w.abs().max()), 1e-12)
+        assert float((g.float() - w).abs().max()) <= tol * scale, name
