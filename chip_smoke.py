@@ -6,10 +6,13 @@ Needs one CUDA card (an H100 for the kernels' ``sm_90a`` build) and the
 CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
 
   1. device  — the card's name and power limit (``nvidia-smi``);
-  2. build   — compile the four CUDA sources with nvcc, one process each
-               in parallel (seconds, ptxas registers / static shared
-               memory / spills of every kernel, and the dynamic shared
-               memory of each flash kernel);
+  2. build   — compile the four CUDA sources with nvcc, one process each,
+               all started together: simjoin.cu is waited for, the three
+               attention sources build on while the join group (3-6)
+               runs and are waited for after it (seconds, ptxas
+               registers / static shared memory / spills of every
+               kernel, and the dynamic shared memory of each flash
+               kernel);
   3. kernels — both CUDA kernels against their plain PyTorch versions on
                the card, exact per-block-pair equality over a sweep of
                d, eps, cross/self joins, ragged sizes, large coordinates,
@@ -28,9 +31,11 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                nodes on one card, ptf2 queries at eps=300) with
                prune="auto" through ``RawArrayCluster.run_workload``,
                launch counts set to 0 before and read after that run,
-               then the same workload with ``impl="plain"`` on the
+               then the whole workload with ``impl="plain"`` on the
                card, equal per query and in every non-timing summary
-               key; the largest dense and pair-list batches of the run
+               key (the replay takes the first run's bitmap sidecars and
+               refined pair lists, which the same host code built, in
+               place of building them again); the largest dense and pair-list batches of the run
                are replayed through kernel and plain version, compared
                and timed (per launch back to back from Python, the JSON
                ``ms``, and in a CUDA graph of 100 launches, ``graph_ms``,
@@ -44,10 +49,11 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
   7. attn    — the flash and paged attention kernels against their plain
                versions on the sweeps of the reference's kernel tests
                (fp32 within 2e-5, bf16 within 2e-2 / 3e-2), the bf16
-               flash kernel at every head dim (ragged Sk, q_offset), the
-               paged kernel at every split count, at head dims 80 and
-               192 with a GQA group of 12, and both at the serving
-               slice's own shapes;
+               flash kernel at every head dim (ragged Sk, q_offset) and
+               the fp32 one at head dim 16, the paged kernel at every
+               split count, at head dims 16, 80 and 192 with a GQA group
+               of 12 and at 16 with 4 query heads (the reduced configs'),
+               and both at the serving slice's own shapes;
   8. prefill — llama3.2-3b at full width and depth (28 layers, random
                bf16 weights from a seed) through ``make_prefill_step`` on
                B=2 x S=4096 tokens: "auto" takes the blockwise path, so
@@ -192,12 +198,32 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                the dry-run's analyzer on the same cell (fake tensors, a
                one-rank fake mesh, the H100 model): its roofline terms
                beside the measured step, the compute and memory terms
-               each at most the measured step.
+               each at most the measured step;
+ 26. gates   — the caching engine's seven CI gates
+               (``tools/smoke_torch.py``: artifact_counters, bitmap_prune,
+               mqo, trace, failover, chaos, audit) at their tools' sizes
+               on ``backend="torch_device"`` through the CUDA simjoin
+               kernels (launch counts set to 0 before each, read after),
+               each again with ``impl="plain"`` on the card: every run's
+               per-query matches and non-timing summary keys equal, and
+               the chaos storm's schedule; failover and chaos again on
+               the paper's PTF deployment (``smoke_torch.PTF``: 2.6 M
+               cells, 8 nodes, eps 300, prune="block", hot replication
+               of 2, the fullest node killed halfway), held the same way;
+               then the four ``examples/*_torch.py`` mains on the card
+               (train_lm for 20 steps; quickstart must launch the dense
+               simjoin kernel, serve_lm the paged one) and ``python -m
+               repro_torch.launch.serve`` at its defaults (reduced
+               qwen1.5-0.5b, head dim 16; run in this process by
+               ``runpy``), each with its launches; last,
+               the flash forward and backward and the paged kernel at
+               head dim 16 timed as in 21 and 22 (reduced heads 4 / 4,
+               B 2 x S 4096; the launcher's batched decode call).
 
 ``--phases`` runs some groups of these (join: 2-6, attn: 7-10, train:
 11-14, moe: 15-18, ssm: 19, jamba: 20, hubert: 21, nemotron: 22, archs:
-23, launch: 24-25; the build and device lines always); the default is
-all of them.
+23, launch: 24-25, gates: 26; the build and device lines always); the
+default is all of them.
 
 Prints the kernels' JSON record (each kernel's row also gives its
 launches in every phase from 15 on under ``phase_launches`` and its
@@ -210,12 +236,14 @@ import argparse
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import math
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -268,7 +296,7 @@ from repro_torch.train.tree import leaves, named_leaves, tree_map  # noqa: E402
 
 # The phases in groups, in the order they run; ``--phases`` picks some.
 PHASE_GROUPS = ("join", "attn", "train", "moe", "ssm", "jamba", "hubert",
-                "nemotron", "archs", "launch")
+                "nemotron", "archs", "launch", "gates")
 N_NODES = 8
 KERNEL_SRC = "src/repro_torch/kernels/simjoin/simjoin.cu"
 SOURCES = {
@@ -755,12 +783,74 @@ def non_timing(summary):
             if not k.endswith("_s") and not k.startswith("measured_")}
 
 
-def phase_ptf(root, tag, cells, prune_mode, plain_budget_s, main_path):
+class SharedBitmapStage:
+    """The bitmap stage's two host functions, ``prune.build_bitmaps`` and
+    ``prune.refine_block_pairs``, memoized by the bytes of their inputs
+    while installed (``with``). A PTF run and its plain replay prepare the
+    same chunks with the same host code, so the replay takes the first
+    run's bitmaps and refined pair lists instead of building them again
+    (the stage is nearly all of the main path's wall). Nothing else
+    changes: each run still goes through its own artifact cache (so its
+    hits, misses and killed pairs are its own), and the join counts come
+    from the kernels or their plain versions on the card."""
+
+    def __init__(self):
+        self.results = {}
+        # id(bitmap list) -> (its key, the list): the list stays alive,
+        # so its id names it while the stage is installed.
+        self.keys = {}
+        self.hits = 0
+        self._real = (prune.build_bitmaps, prune.refine_block_pairs)
+
+    @staticmethod
+    def digest(arr):
+        """A key for an array's dtype, shape and bytes."""
+        a = np.ascontiguousarray(arr)
+        return (a.dtype.str, a.shape,
+                hashlib.blake2b(a.tobytes(), digest_size=16).hexdigest())
+
+    def _memo(self, key, compute):
+        if key in self.results:
+            self.hits += 1
+        else:
+            self.results[key] = compute()
+        return self.results[key]
+
+    def build_bitmaps(self, coords, block, scale):
+        """``prune.build_bitmaps``, memoized."""
+        key = ("bitmaps", self.digest(coords), int(block), int(scale))
+        out = self._memo(key, lambda: self._real[0](coords, block, scale))
+        self.keys[id(out)] = (key, out)
+        return out
+
+    def refine_block_pairs(self, pairs, bm_a, bm_b, eps, scale):
+        """``prune.refine_block_pairs``, memoized (on bitmaps this stage
+        built; any other input is refined afresh)."""
+        ka, kb = self.keys.get(id(bm_a)), self.keys.get(id(bm_b))
+        if ka is None or kb is None:
+            return self._real[1](pairs, bm_a, bm_b, eps, scale)
+        key = ("refined", self.digest(pairs), ka[0], kb[0], int(eps),
+               int(scale))
+        refined, killed = self._memo(key, lambda: self._real[1](
+            pairs, bm_a, bm_b, eps, scale))
+        return refined.copy(), killed
+
+    def __enter__(self):
+        prune.build_bitmaps = self.build_bitmaps
+        prune.refine_block_pairs = self.refine_block_pairs
+        return self
+
+    def __exit__(self, *exc):
+        prune.build_bitmaps, prune.refine_block_pairs = self._real
+
+
+def phase_ptf(root, tag, cells, prune_mode, main_path):
     """One PTF run through the kernels (launch counts set to 0 just
-    before and read just after), then the same workload through the
-    plain versions on the card, query by query while ``plain_budget_s``
-    lasts; per-query matches and non-timing summary keys must agree.
-    On the ``main_path`` run every kernel must have launched."""
+    before and read just after), then the whole workload again through
+    the plain versions on the card: per-query matches and non-timing
+    summary keys must agree. The replay takes the first run's bitmap
+    stage (:class:`SharedBitmapStage`). On the ``main_path`` run every
+    kernel must have launched."""
     t0 = time.perf_counter()
     files = make_ptf_files(n_files=32, cells_per_file_mean=cells,
                            skew=1.1, seed=21)
@@ -779,8 +869,10 @@ def phase_ptf(root, tag, cells, prune_mode, plain_budget_s, main_path):
     torch.cuda.reset_peak_memory_stats()
     for name in simjoin.LAUNCHES:
         simjoin.LAUNCHES[name] = 0
+    shared = SharedBitmapStage()
     t0 = time.perf_counter()
-    executed = cluster.run_workload(queries)
+    with shared:
+        executed = cluster.run_workload(queries)
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = dict(simjoin.LAUNCHES)
@@ -812,24 +904,21 @@ def phase_ptf(root, tag, cells, prune_mode, plain_budget_s, main_path):
     log(f"{tag}[kernel]: device_stats {cluster.backend.device_stats}")
     log(f"{tag}[kernel]: summary {json.dumps(summary)}")
 
-    # The same workload with the plain versions on the card, query by
-    # query while the time budget lasts.
+    # The same workload with the plain versions on the card.
     plain = make_cluster(catalog, data, 4, prune=prune_mode, impl="plain")
+    hits = shared.hits
     t0 = time.perf_counter()
-    plain_exec = []
-    for q in queries:
-        plain_exec.append(plain.run_query(q))
-        if time.perf_counter() - t0 > plain_budget_s:
-            break
+    with shared:
+        plain_exec = [plain.run_query(q) for q in queries]
     torch.cuda.synchronize()
     n = len(plain_exec)
-    got = [e.matches for e in executed[:n]]
+    got = [e.matches for e in executed]
     want = [e.matches for e in plain_exec]
-    s_kernel = non_timing(workload_summary(executed[:n]))
+    s_kernel = non_timing(summary)
     s_plain = non_timing(workload_summary(plain_exec))
-    log(f"{tag}[plain]: first {n} of {len(queries)} queries in "
-        f"{time.perf_counter() - t0:.3f} s wall, matches {want} "
-        f"[{label}]")
+    log(f"{tag}[plain]: all {n} queries in {time.perf_counter() - t0:.3f} "
+        f"s wall ({shared.hits - hits} bitmap-stage results taken from "
+        f"the kernel run), matches {want} [{label}]")
     if got != want:
         raise AssertionError(f"{tag} per-query matches differ: {got} vs "
                              f"{want}")
@@ -1056,6 +1145,20 @@ def phase_attention_kernels(dev):
                       f" causal={causal} q_offset={off}")
             err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
             cases += 1
+    # The fp32 (CUDA-core) kernel at head dim 16, every reduced config's:
+    # causal GQA, ragged non-causal Sk, q_offset.
+    for b, sq, sk, h, hk, causal, off in (
+            (2, 256, 256, 8, 2, True, 0), (1, 130, 200, 4, 4, False, 0),
+            (1, 64, 256, 4, 1, True, 192)):
+        qt, kt, vt = (randn(rng, (b, hh, n, 16), torch.float32, dev)
+                      for n, hh in ((sq, h), (sk, hk), (sk, hk)))
+        got = flash.flash_attention_fwd(qt, kt, vt, causal=causal, bq=1,
+                                        bk=1, q_offset=off)
+        want = attention_ref(qt, kt, vt, causal=causal, q_offset=off)
+        e = close(got, want, 2e-5, 2e-5, f"flash fp32 D16 Sq{sq} Sk{sk} "
+                  f"H{h}/{hk} causal={causal} q_offset={off}")
+        err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
+        cases += 1
     cfg = get_config(ARCH)
     hd = cfg.resolved_head_dim
     flash_case(PREFILL_B, PREFILL_S, PREFILL_S, cfg.n_heads, cfg.n_kv_heads,
@@ -1121,11 +1224,13 @@ def phase_attention_kernels(dev):
         paged_case(slots, cfg.n_heads, cfg.n_kv_heads, hd, slots * n_pg, ps,
                    n_pg, [271] * slots, dtype, splits=every)
         cases += 2
-    # Head dims 80 and 192 with a GQA group of 12 (two CTAs of query
-    # heads a KV head), ragged lengths, every split count.
-    for d in (80, 192):
+    # Head dims 16, 80 and 192 with a GQA group of 12 (two CTAs of query
+    # heads a KV head), ragged lengths, every split count; and 16 at the
+    # reduced configs' 4 query heads (qwen1.5-0.5b's MHA, llama's GQA 3).
+    for d, h, hk in ((16, 24, 2), (80, 24, 2), (192, 24, 2), (16, 4, 4),
+                     (16, 4, 1)):
         for dtype in (torch.float32, torch.bfloat16):
-            paged_case(4, 24, 2, d, 64, 16, 4, [0, 1, 33, 64], dtype,
+            paged_case(4, h, hk, d, 64, 16, 4, [0, 1, 33, 64], dtype,
                        splits=every)
             cases += 1
     q = randn(rng, (2, 4, 32), torch.float32, dev)
@@ -3266,6 +3371,241 @@ def phase_launch(dev, seed):
     return launches
 
 
+# ------------------------------------------------------------- gates
+#
+# The caching engine's CI gates (tools/smoke_torch.py) on the card, each
+# held to its own plain run, then the port's examples and the serving
+# launcher at their defaults.
+
+REPO = Path(__file__).resolve().parent
+# What each gate's log line prints from its checked run's summary.
+GATE_COUNTERS = {
+    "artifact_counters": ("artifact_hits", "artifact_misses"),
+    "bitmap_prune": ("block_pairs_evaluated", "block_pairs_total",
+                     "block_pairs_bitmap_killed"),
+    "mqo": ("mqo_tasks_total", "mqo_tasks_executed", "mqo_shared_hits",
+            "result_cache_hits"),
+    "trace": ("reuse_hits", "mqo_shared_hits", "result_cache_hits",
+              "replica_hits"),
+    "failover": ("failover_readmits", "replica_hits"),
+    "chaos": ("faults_injected", "retries", "transfer_reroutes",
+              "raw_fallbacks", "checksum_mismatch", "degraded_queries",
+              "audit_violations"),
+    "audit": ("faults_injected", "retries", "degraded_queries",
+              "audit_violations"),
+}
+# The examples: (script, arguments past ``--device``, the kernel its
+# main must launch). The analytics query (the reference's own) touches no
+# cell, so no join runs; train_lm's 128 tokens take the naive attention
+# path (as the reference's "auto" does below 2048), so it launches no
+# ported kernel. It keeps 20 steps: after 5 its own check (the last loss
+# below the first) failed on the card.
+EXAMPLES = (("examples/quickstart_torch.py", [], "simjoin_block_counts"),
+            ("examples/raw_array_analytics_torch.py", [], None),
+            ("examples/serve_lm_torch.py", [], "paged_attention"),
+            ("examples/train_lm_torch.py", ["--steps", "20"], None))
+# The serving launcher's command line at its defaults (reduced
+# qwen1.5-0.5b, head dim 16), as ``python -m repro_torch.launch.serve``
+# gets it.
+LAUNCHER_ARGV = ["repro_torch.launch.serve"]
+
+
+def load_script(rel):
+    """A script of the repo (``tools/``, ``examples/``) as a module."""
+    import importlib.util
+    path = REPO / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def attention_launches():
+    """The attention kernels' launch counts so far."""
+    return {**flash.LAUNCHES, **paged.LAUNCHES}
+
+
+def gate_on_card(smoke, dev, tag, gate, **kw):
+    """One gate through the CUDA kernels (simjoin launch counts set to 0
+    just before and read just after), then through their plain versions
+    on the card: both pass, and every run's per-query matches and
+    non-timing summary keys are equal (chaos: its storm's schedule too).
+    Returns the kernel run's launches."""
+    for name in simjoin.LAUNCHES:
+        simjoin.LAUNCHES[name] = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as tmp:
+        t0 = time.perf_counter()
+        got = smoke.GATES[gate](backend="torch_device", device=dev.type,
+                                root=tmp, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(simjoin.LAUNCHES)
+        t0 = time.perf_counter()
+        plain = smoke.GATES[gate](backend="torch_device", device=dev.type,
+                                  impl="plain", root=tmp, **kw)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    for run in (got, plain):
+        if not run.ok:
+            raise AssertionError(f"gates[{tag}] failed: {run.failures}")
+    for name, run in got.runs.items():
+        other = plain.runs[name]
+        if run.matches != other.matches:
+            raise AssertionError(f"gates[{tag}] {name}: matches "
+                                 f"{run.matches} vs plain {other.matches}")
+        if non_timing(run.summary) != non_timing(other.summary):
+            raise AssertionError(f"gates[{tag}] {name}: summary "
+                                 f"{run.summary} vs plain {other.summary}")
+    if got.extra.get("schedule_log") != plain.extra.get("schedule_log"):
+        raise AssertionError(f"gates[{tag}]: storm schedules differ")
+    checked = list(got.runs.values())[-1]
+    counters = {k: checked.summary.get(k) for k in GATE_COUNTERS[gate]}
+    counters.update({k: v for k, v in got.extra.items()
+                     if k in ("coverage", "engaged", "replicated",
+                              "victim", "audits_run")})
+    log(f"gates[{tag}]: OK, {wall:.2f} s (plain {plain_wall:.2f} s), "
+        f"{len(got.runs)} runs equal to plain, matches "
+        f"{sum(m or 0 for m in checked.matches)} over "
+        f"{len(checked.matches)} queries, {counters}, launches {launches} "
+        f"[{card_label()}]")
+    return launches
+
+
+def d16_replays(dev):
+    """The attention kernels at head dim 16, every reduced config's: the
+    flash forward and backward at a reduced config's heads (4 / 4) over
+    B 2 x S 4096, causal, and the paged kernel at the serving launcher's
+    batched call (4 slots, max_len 128, 4 / 4 heads, 72 live positions
+    a slot), each against its plain version and timed beside SDPA and
+    its bound. Returns [(shape, replay rows)]."""
+    cfg = reduced(get_config("qwen1.5-0.5b"))
+    hd = cfg.resolved_head_dim
+    out = [flash_replay(dev, "reduced D16", 2, PREFILL_S, cfg.n_heads,
+                        cfg.n_kv_heads, hd, True, backward=True)]
+    rng = np.random.default_rng(32)
+    slots, max_len = 4, 128
+    ps = model_attention.page_size_for(max_len)
+    n_pg = max_len // ps
+    args = (randn(rng, (slots, cfg.n_heads, hd), torch.bfloat16, dev),
+            randn(rng, (slots * n_pg, ps, cfg.n_kv_heads, hd),
+                  torch.bfloat16, dev),
+            randn(rng, (slots * n_pg, ps, cfg.n_kv_heads, hd),
+                  torch.bfloat16, dev),
+            torch.arange(slots * n_pg, dtype=torch.int32,
+                         device=dev).view(slots, n_pg),
+            torch.full((slots,), 72, dtype=torch.int32, device=dev))
+    kind = f"reduced D16 B={slots} batched decode"
+    out.append((kind, {"paged": replay_paged(args, kind, card_label())}))
+    return out
+
+
+def phase_gates(dev):
+    """Every gate at its tool's size, failover and chaos again on the
+    paper's PTF deployment, then the examples and the serving launcher
+    on the card, then the attention kernels timed at head dim 16.
+    Returns the launches of every kernel over the group's kernel runs
+    (the timing replays not counted) and the replays."""
+    smoke = load_script("tools/smoke_torch.py")
+    total = {name: 0 for name in simjoin.LAUNCHES}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    for gate in smoke.GATES:
+        add(gate_on_card(smoke, dev, gate, gate))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gates_ptf_") as tmp:
+        t0 = time.perf_counter()
+        ptf = smoke.PTF.build(tmp)
+        cells = sum(f.n_cells for f in ptf.catalog.files)
+        log(f"gates[ptf]: {len(ptf.catalog.files)} files, {cells} cells, "
+            f"{ptf.deployment.n_nodes} nodes, generate + write "
+            f"{time.perf_counter() - t0:.2f} s")
+        add(gate_on_card(smoke, dev, "failover ptf", "failover",
+                         dataset=ptf))
+        add(gate_on_card(smoke, dev, "chaos ptf", "chaos", dataset=ptf,
+                         fail_half=True))
+    if any(total[name] == 0 for name in simjoin.LAUNCHES):
+        raise AssertionError(f"gates: a simjoin kernel never launched: "
+                             f"{total}")
+
+    on = ["--device", dev.type]
+    for rel, argv, kernel in EXAMPLES:
+        before = {**attention_launches(), **simjoin.LAUNCHES}
+        t0 = time.perf_counter()
+        load_script(rel).main(on + argv)
+        torch.cuda.synchronize()
+        ran = {k: v - before[k]
+               for k, v in {**attention_launches(),
+                            **simjoin.LAUNCHES}.items()}
+        if kernel is not None and not ran[kernel]:
+            raise AssertionError(f"{rel} never launched {kernel}: {ran}")
+        add(ran)
+        log(f"gates[{Path(rel).stem}]: main({on + argv}) on the card, "
+            f"{time.perf_counter() - t0:.2f} s, launches {ran}"
+            + ("" if kernel else " (no ported kernel on its path)"))
+    # ``python -m repro_torch.launch.serve``, run in this process (a
+    # raise fails the phase, as a nonzero exit would).
+    import runpy
+    before = attention_launches()
+    argv, sys.argv = sys.argv, list(LAUNCHER_ARGV)
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("repro_torch.launch.serve", run_name="__main__",
+                         alter_sys=True)
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in attention_launches().items()}
+    add(ran)
+    if not ran["paged_attention"]:
+        raise AssertionError(f"the serving launcher never launched the "
+                             f"paged kernel: {ran}")
+    log(f"gates[launch.serve]: python -m repro_torch.launch.serve at its "
+        f"defaults (reduced qwen1.5-0.5b, head dim 16) ran to its end in "
+        f"{time.perf_counter() - t0:.2f} s; launches {ran}")
+    return {k: v for k, v in total.items() if v}, d16_replays(dev)
+
+
+class BackgroundBuild:
+    """``build_all(libraries)`` on a thread, started at once. :meth:`wait`
+    joins it (so no nvcc outlives the script) and raises its error;
+    ``seconds`` is then the build's wall from the start."""
+
+    def __init__(self, libraries):
+        self.seconds = None
+        self.error = None
+        t0 = time.perf_counter()
+
+        def run():
+            try:
+                build_all(libraries)
+            except BaseException as exc:     # raised again by wait()
+                self.error = exc
+            self.seconds = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def wait(self):
+        """Wait for the build; raise what it raised."""
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+
+
+def log_build(libraries):
+    """Each built library's nvcc seconds, path and ptxas lines."""
+    for lib in libraries:
+        log(f"build: {lib.source.name} {lib.info['seconds']:.2f} s "
+            f"(built={lib.info['built']}) -> {lib.info['path']}")
+        for line in str(lib.info["ptxas"]).splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "C7512")):
+                log(f"build: {line.strip()}")
+
+
 def main(argv=None) -> int:
     """Run every phase; any failure raises and exits non-zero."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3275,8 +3615,6 @@ def main(argv=None) -> int:
     ap.add_argument("--ptf-full-cells", type=int, default=100_000,
                     help="mean cells per PTF file of the full-size run "
                          "(prune='block')")
-    ap.add_argument("--plain-budget-s", type=float, default=240.0,
-                    help="wall-clock budget of the plain-version replay")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the train phases' corpus and weights")
     ap.add_argument("--phases", default=",".join(PHASE_GROUPS),
@@ -3296,19 +3634,39 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     dev = torch.device("cuda", 0)
 
-    t0 = time.perf_counter()
-    libraries = (simjoin.LIBRARY, flash.LIBRARY, flash.LIBRARY_BWD,
-                 paged.LIBRARY)
-    build_all(libraries)
-    log(f"build: {time.perf_counter() - t0:.2f} s for {len(libraries)} "
-        f"sources, one nvcc each, in parallel")
-    for lib in libraries:
-        log(f"build: {lib.source.name} {lib.info['seconds']:.2f} s "
-            f"(built={lib.info['built']}) -> {lib.info['path']}")
-        for line in str(lib.info["ptxas"]).splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling",
-                                       "C7512")):
-                log(f"build: {line.strip()}")
+    # All four sources start building at once; the join group needs only
+    # simjoin.cu, so the attention sources build while it runs.
+    attention_libs = (flash.LIBRARY, flash.LIBRARY_BWD, paged.LIBRARY)
+    background = BackgroundBuild(attention_libs)
+    record = []
+    rows = []
+    try:
+        t0 = time.perf_counter()
+        build_all((simjoin.LIBRARY,))
+        log(f"build: simjoin.cu ready in {time.perf_counter() - t0:.2f} s; "
+            f"the {len(attention_libs)} attention sources go on building "
+            f"(one nvcc each, in parallel) while the join group runs")
+        log_build((simjoin.LIBRARY,))
+        if "join" in groups:
+            t0 = time.perf_counter()
+            sweep_err = phase_kernels(dev)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                root = Path(tmp)
+                phase_geo(root)
+                launches, largest, _ = phase_ptf(
+                    root, "ptf", args.ptf_cells, "auto", main_path=True)
+                phase_ptf(root, "ptf-full", args.ptf_full_cells, "block",
+                          main_path=False)
+            rows = replay(largest)
+            log(f"group join: {time.perf_counter() - t0:.2f} s")
+    finally:
+        t0 = time.perf_counter()
+        background.thread.join()     # no nvcc outlives a failed group
+    background.wait()
+    log(f"build: the attention sources built in {background.seconds:.2f} s "
+        f"from the start (waited {time.perf_counter() - t0:.2f} s for them "
+        f"after the join group)")
+    log_build(attention_libs)
     fl = flash.LIBRARY.load()
     log("build: flash dynamic shared memory per CTA: " + ", ".join(
         f"{name} D={d} {fl.flash_smem_bytes(code, d)} bytes"
@@ -3323,22 +3681,6 @@ def main(argv=None) -> int:
             (1, 1, "flash_bwd_dq_wgmma_kernel"),
             (0, 0, "flash_bwd_dkdv_kernel"), (0, 1, "flash_bwd_dq_kernel"))
         for d in flash.HEAD_DIMS))
-
-    record = []
-    rows = []
-    if "join" in groups:
-        t0 = time.perf_counter()
-        sweep_err = phase_kernels(dev)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            root = Path(tmp)
-            phase_geo(root)
-            launches, largest, _ = phase_ptf(
-                root, "ptf", args.ptf_cells, "auto", args.plain_budget_s,
-                main_path=True)
-            phase_ptf(root, "ptf-full", args.ptf_full_cells, "block",
-                      args.plain_budget_s, main_path=False)
-        rows = replay(largest)
-        log(f"group join: {time.perf_counter() - t0:.2f} s")
     for row in rows:
         name = row["name"]
         record.append({
@@ -3388,6 +3730,10 @@ def main(argv=None) -> int:
     if "launch" in groups:
         phase_launches["launch-train"] = timed("group launch", phase_launch,
                                                dev, args.seed)
+    if "gates" in groups:
+        phase_launches["gates"], replays = timed("group gates", phase_gates,
+                                                 dev)
+        file_replays(replays)
     for row in record:
         name = row["name"]
         per_phase = {phase: counts[name]

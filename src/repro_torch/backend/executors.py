@@ -86,25 +86,32 @@ class PreparedBatch:
 
 
 def count_similar_pairs_np(a: np.ndarray, b: np.ndarray, eps: int,
-                           same: bool, block: int = 4096) -> int:
+                           same: bool, block: int = 256) -> int:
     """Unordered (x != y) L1-neighbor pairs between cell coordinate sets.
-    Blocked to bound memory; numpy reference executor."""
+    Blocked to bound memory; numpy reference executor. The distance is
+    summed one dimension at a time in int64 over cache-sized blocks, a
+    self-join skips the blocks wholly below the diagonal, and hits are
+    counted with ``count_nonzero``: the reference's counts, several
+    times faster than its one-expression form over 4096-row blocks."""
     if a.shape[0] == 0 or b.shape[0] == 0:
         return 0
     total = 0
     for i0 in range(0, a.shape[0], block):
-        ai = a[i0:i0 + block]
+        ai = a[i0:i0 + block].astype(np.int64)
         for j0 in range(0, b.shape[0], block):
-            bj = b[j0:j0 + block]
-            dist = np.abs(ai[:, None, :].astype(np.int64)
-                          - bj[None, :, :].astype(np.int64)).sum(axis=2)
+            if same and j0 + block <= i0:
+                continue            # every (i, j) here has j < i
+            bj = b[j0:j0 + block].astype(np.int64)
+            dist = np.abs(ai[:, None, 0] - bj[None, :, 0])
+            for k in range(1, ai.shape[1]):
+                dist += np.abs(ai[:, None, k] - bj[None, :, k])
             hit = dist <= eps
             if same:
                 # Count each unordered pair once; drop identical cells.
                 ii = i0 + np.arange(ai.shape[0])[:, None]
                 jj = j0 + np.arange(bj.shape[0])[None, :]
                 hit &= ii < jj
-            total += int(hit.sum())
+            total += int(np.count_nonzero(hit))
     return total
 
 

@@ -630,7 +630,8 @@ class CacheCoordinator:
             at its home node when budget allows (charged to
             ``recovery_bytes_from_raw``).
 
-        The round ends with ``sync_coverage`` + ``sync_devices``, so
+        The round ends with ``sync_devices`` (and, under semantic
+        reuse, ``sync_coverage``), so
         every listener-driven tier reconciles against the post-failure
         residency (the result tier's snapshot diff bumps its version on
         any replica-set change — no stored result computed against a
@@ -695,7 +696,12 @@ class CacheCoordinator:
                     # policy bookkeeping so the id cannot resurrect into
                     # residency without a fresh scan.
                     self.eviction.discard(cid)
-        self.cache.sync_coverage(self.chunks.meta_of)
+        # The coverage index is kept only under semantic reuse, as the
+        # policy rounds keep it: populating it here with reuse off would
+        # leave entries that no later round removes when their chunks
+        # are evicted.
+        if self.reuse == "on":
+            self.cache.sync_coverage(self.chunks.meta_of)
         self.cache.sync_devices()
         event = {
             "failover_readmits": float(readmits),

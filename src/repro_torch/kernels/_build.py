@@ -4,9 +4,10 @@ Every kernel source (``kernels/<name>/<name>.cu``) has a plain C
 interface. It is compiled with ``nvcc`` for ``sm_90a`` at its first use
 into ``build/repro_torch_ext/`` at the repository root, as a shared
 library whose name carries the hash of the source, of every ``*.cuh``
-header beside it and of the flags (so an edited source or header
-rebuilds), and loaded with ``ctypes``. The source's directory is on
-nvcc's include path. No PyTorch header is compiled, so a build takes
+header beside it or in ``kernels/`` itself (``head_dims.cuh``, shared by
+the attention sources) and of the flags (so an edited source or header
+rebuilds), and loaded with ``ctypes``. Both directories are on nvcc's
+include path. No PyTorch header is compiled, so a build takes
 seconds. :func:`build_all` starts one ``nvcc`` per source, all at once,
 and waits for them together.
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,6 +31,22 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: The kernels' own directory: its ``*.cuh`` headers are shared by every
+#: source (on nvcc's include path, in every library's hash).
+KERNELS_DIR = Path(__file__).resolve().parent
+
+
+def _head_dims() -> Tuple[int, ...]:
+    """The ``X(D)`` arms of ``head_dims.cuh``'s ``REPRO_HEAD_DIMS``."""
+    text = (KERNELS_DIR / "head_dims.cuh").read_text()
+    macro = text.split("#define REPRO_HEAD_DIMS(X)", 1)[1]
+    return tuple(int(d) for d in re.findall(r"X\((\d+)\)", macro))
+
+
+#: Head dims every attention kernel is instantiated for (the flash and
+#: paged wrappers' ``HEAD_DIMS``), read from the list the CUDA sources
+#: expand, ``head_dims.cuh``.
+HEAD_DIMS = _head_dims()
 
 #: ctypes argument types by short name, for the signature tables.
 CTYPES = {"ptr": ctypes.c_void_p, "i64": ctypes.c_int64, "i32": ctypes.c_int,
@@ -74,13 +92,23 @@ class CudaLibrary:
     def path(self) -> Path:
         """Where the library for the current source, headers and flags
         lives: ``build/repro_torch_ext/<prefix>_<hash>.so``, the hash over
-        the source, each ``*.cuh`` of its directory (name and bytes, sorted
-        by name) and the flags."""
+        the source, each ``*.cuh`` of its directory and of
+        :data:`KERNELS_DIR` (name and bytes, sorted by name) and the
+        flags."""
         h = hashlib.sha256(self.source.read_bytes())
-        for header in sorted(self.source.parent.glob("*.cuh")):
-            h.update(header.name.encode() + b"\0" + header.read_bytes())
+        for folder in self._include_dirs():
+            for header in sorted(folder.glob("*.cuh")):
+                h.update(header.name.encode() + b"\0" + header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.prefix}_{h.hexdigest()[:16]}.so"
+
+    def _include_dirs(self) -> List[Path]:
+        """nvcc's include path: the source's directory, then
+        :data:`KERNELS_DIR`."""
+        dirs = [self.source.parent]
+        if KERNELS_DIR.resolve() != self.source.parent.resolve():
+            dirs.append(KERNELS_DIR)
+        return dirs
 
     def _start(self) -> Optional[Tuple[subprocess.Popen, Path, List[str],
                                        float]]:
@@ -92,8 +120,9 @@ class CudaLibrary:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(self.source.parent), "-o",
-               str(tmp), str(self.source)]
+        includes = [a for d in self._include_dirs() for a in ("-I", str(d))]
+        cmd = [nvcc(), *NVCC_FLAGS, *includes, "-o", str(tmp),
+               str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, cmd, time.perf_counter()

@@ -31,7 +31,7 @@
 // tensor maps (D, S, B * heads), so the hardware's zero fill stops at each
 // head's own end; every stage signals an mbarrier with its byte count and
 // is handed back by the consumers through a second one. Tiles stay bf16 in
-// shared memory with the 128-byte swizzle (64-byte at D = 32) that wgmma
+// shared memory with the 128-byte swizzle (64-byte at D <= 32) that wgmma
 // reads. A consumer computes S = Q K^T with wgmma m64n128k16 (both
 // operands from shared memory, fp32 accumulators), runs the online softmax
 // in registers in the accumulator layout (base-2 exponentials, the
@@ -42,15 +42,18 @@
 // stores bf16, skipping rows >= Sq. Key columns >= Sk score -1e30.
 // Shared memory at D = 128: Q 32 KB + 2
 // stages x (K 32 KB + V 32 KB) = 160 KB, one CTA per SM.
-// Head dims 80 and 192 (hubert-xlarge, nemotron-4-340b). D = 80 is not a
-// whole number of 64-column atoms: the tensor maps keep the real 80
-// columns (a 160-byte row), the second atom's box reaches past them and
-// TMA fills columns 80-127 with zeros, so the tiles are D = 128's; S
-// takes the 5 real 16-column steps, O is accumulated 128 wide (its
-// padded columns stay 0) and only 80 columns are stored; the scale is
-// 1/sqrt(80). D = 192 is three atoms; its stages hold 64 keys (Tile),
-// S is m64n64k16 and O += P V m64n192k16: Q 48 KB + 2 x (24 + 24) KB =
-// 144 KB.
+// Head dims: every multiple of 16 up to 192 (hubert-xlarge's 80,
+// nemotron-4-340b's 192, and 16, the head dim of every config reduced to
+// d_model 64 and 4 heads). A D that is not a whole number of swizzle
+// atoms is padded, as D = 80 is: the tensor maps keep the real D
+// columns (a 160-byte row at 80), the last atom's box reaches past them
+// and TMA fills the rest with zeros, so the tiles are those of the next
+// instantiated width (16 -> 32, 48 -> 64, 80..112 -> 128, 144..176 ->
+// 192); S takes the D / 16 real 16-column steps, O is accumulated over
+// the padded width (its padded columns stay 0) and only D columns are
+// stored; the scale is 1/sqrt(D). D > 128 is three atoms; its stages
+// hold 64 keys (Tile), S is m64n64k16 and O += P V m64n192k16: Q 48 KB
+// + 2 x (24 + 24) KB = 144 KB.
 //
 // flash_fwd_f32_kernel (float32 q, k, v). The reference's fp32 tolerance
 // (2e-5) rules out TF32 tensor cores, so fp32 stays on the CUDA cores: one
@@ -64,6 +67,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "head_dims.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -275,7 +279,7 @@ constexpr int kStages = 2;          // K/V ring depth
 constexpr int kConsumerWarps = 8;   // two warpgroups
 constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer warpgroup
 
-// Tiles of swizzle atoms (hopper.cuh), kPadded columns wide. At D = 192
+// Tiles of swizzle atoms (hopper.cuh), kPadded columns wide. At D > 128
 // a stage holds 64 keys: Q (48 KB) and two stages of 128-key K and V
 // (4 x 48 KB) would pass the 227 KB a CTA may have, and a 64-key score
 // tile (32 registers a thread) and its bf16 copy (16) beside the O
@@ -305,8 +309,6 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       int causal, int q_offset, float scale_log2) {
   using T = Tile<D>;
   constexpr int kBK = T::kBK;
-  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 192,
-                "head dim");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;                               // [atoms][kBQ rows]
@@ -522,19 +524,15 @@ const char* flash_error_string(int err) { return hopper::error_string(err); }
 int64_t flash_smem_bytes(int dtype, int D) {
   if (dtype == 0) {
     switch (D) {
-      case 32: return f32::smem_bytes<32>();
-      case 64: return f32::smem_bytes<64>();
-      case 80: return f32::smem_bytes<80>();
-      case 128: return f32::smem_bytes<128>();
-      case 192: return f32::smem_bytes<192>();
+#define REPRO_ARM(d) case d: return f32::smem_bytes<d>();
+      REPRO_HEAD_DIMS(REPRO_ARM)
+#undef REPRO_ARM
     }
   } else if (dtype == 1) {
     switch (D) {
-      case 32: return bf16::Tile<32>::kSmem;
-      case 64: return bf16::Tile<64>::kSmem;
-      case 80: return bf16::Tile<80>::kSmem;
-      case 128: return bf16::Tile<128>::kSmem;
-      case 192: return bf16::Tile<192>::kSmem;
+#define REPRO_ARM(d) case d: return bf16::Tile<d>::kSmem;
+      REPRO_HEAD_DIMS(REPRO_ARM)
+#undef REPRO_ARM
     }
   }
   return -1;
@@ -554,19 +552,15 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
 #define REPRO_FLASH_ARGS q, k, v, o, l, B, H, Hk, Sq, Sk, causal, q_offset, sm_scale, s
   if (dtype == 0) {
     switch (D) {
-      case 32: return f32::launch<32>(REPRO_FLASH_ARGS);
-      case 64: return f32::launch<64>(REPRO_FLASH_ARGS);
-      case 80: return f32::launch<80>(REPRO_FLASH_ARGS);
-      case 128: return f32::launch<128>(REPRO_FLASH_ARGS);
-      case 192: return f32::launch<192>(REPRO_FLASH_ARGS);
+#define REPRO_ARM(d) case d: return f32::launch<d>(REPRO_FLASH_ARGS);
+      REPRO_HEAD_DIMS(REPRO_ARM)
+#undef REPRO_ARM
     }
   } else if (dtype == 1) {
     switch (D) {
-      case 32: return bf16::launch<32>(REPRO_FLASH_ARGS);
-      case 64: return bf16::launch<64>(REPRO_FLASH_ARGS);
-      case 80: return bf16::launch<80>(REPRO_FLASH_ARGS);
-      case 128: return bf16::launch<128>(REPRO_FLASH_ARGS);
-      case 192: return bf16::launch<192>(REPRO_FLASH_ARGS);
+#define REPRO_ARM(d) case d: return bf16::launch<d>(REPRO_FLASH_ARGS);
+      REPRO_HEAD_DIMS(REPRO_ARM)
+#undef REPRO_ARM
     }
   }
 #undef REPRO_FLASH_ARGS

@@ -45,7 +45,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels._build import CudaLibrary
+from repro_torch.kernels._build import HEAD_DIMS, CudaLibrary
 from repro_torch.kernels._tensors import aligned16, run_op
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
@@ -55,8 +55,6 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 #: the plain version, on whatever device the tensors are on.
 IMPLS = ("kernel", "plain")
 
-#: Head dims both CUDA kernels are instantiated for.
-HEAD_DIMS = (32, 64, 80, 128, 192)
 
 #: Kernel name -> launches so far (bumped only where the kernel launches).
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,

@@ -55,6 +55,7 @@
 
 #include <type_traits>
 
+#include "head_dims.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -419,11 +420,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Shared memory at D = 128: dK/dV 2 x 16 KB once + 2 stages x (2 x 16 KB +
 // 8 KB of P) + 1 KB of lse and delta rows = 113 KB; dQ 2 x 32 KB once +
 // 2 stages x 2 x 16 KB = 128 KB; one CTA per SM.
-// Head dims 80 and 192 (hubert-xlarge, nemotron-4-340b), as the forward
-// takes them: at D = 80 the tiles are D = 128's, the tensor maps' zero
-// fill past the 80 real columns, the score products take the 5 real
-// 16-column steps and the gradients are accumulated 128 wide and stored
-// 80 wide; at D = 192 (three atoms) a consumer holds a 96-register
+// Head dims: every multiple of 16 up to 192, padded as the forward pads
+// them: at D = 80 the tiles are D = 128's (at 16 D = 32's, at 48 D =
+// 64's, at 144-176 D = 192's), the tensor maps' zero fill past the D
+// real columns, the score products take the D / 16 real 16-column steps
+// and the gradients are accumulated over the padded width and stored D
+// wide; at D > 128 (three atoms) a consumer holds a 96-register
 // gradient, the gradient products are m64n192k16, and shared memory is
 // dK/dV 161 KB, dQ 193 KB.
 namespace wg {
@@ -538,8 +540,6 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             int H, int Hk, int Sq, int Sk, int causal,
                             int q_offset, float sm_scale) {
   using L = DkdvSmem<D>;
-  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 192,
-                "head dim");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -716,8 +716,6 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           bf16* __restrict__ dq, int H, int Hk, int Sq,
                           int Sk, int causal, int q_offset, float sm_scale) {
   using L = DqSmem<D>;
-  static_assert(D == 32 || D == 64 || D == 80 || D == 128 || D == 192,
-                "head dim");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;                          // [atoms][kTile rows]
@@ -965,29 +963,18 @@ const char* flash_bwd_error_string(int err) {
 int64_t flash_bwd_smem_bytes(int dtype, int which, int D) {
   if (dtype == 1) {
     switch (D) {
-      case 32:
-        return which == 0 ? wg::DkdvSmem<32>::kSmem : wg::DqSmem<32>::kSmem;
-      case 64:
-        return which == 0 ? wg::DkdvSmem<64>::kSmem : wg::DqSmem<64>::kSmem;
-      case 80:
-        return which == 0 ? wg::DkdvSmem<80>::kSmem : wg::DqSmem<80>::kSmem;
-      case 128:
-        return which == 0 ? wg::DkdvSmem<128>::kSmem
-                          : wg::DqSmem<128>::kSmem;
-      case 192:
-        return which == 0 ? wg::DkdvSmem<192>::kSmem
-                          : wg::DqSmem<192>::kSmem;
+#define REPRO_ARM(d)                                                      \
+  case d: return which == 0 ? wg::DkdvSmem<d>::kSmem : wg::DqSmem<d>::kSmem;
+      REPRO_HEAD_DIMS(REPRO_ARM)
+#undef REPRO_ARM
     }
     return -1;
   }
   switch (D) {
-    case 32: return which == 0 ? dkdv_smem_bytes<32>() : dq_smem_bytes<32>();
-    case 64: return which == 0 ? dkdv_smem_bytes<64>() : dq_smem_bytes<64>();
-    case 80: return which == 0 ? dkdv_smem_bytes<80>() : dq_smem_bytes<80>();
-    case 128:
-      return which == 0 ? dkdv_smem_bytes<128>() : dq_smem_bytes<128>();
-    case 192:
-      return which == 0 ? dkdv_smem_bytes<192>() : dq_smem_bytes<192>();
+#define REPRO_ARM(d)                                                      \
+  case d: return which == 0 ? dkdv_smem_bytes<d>() : dq_smem_bytes<d>();
+    REPRO_HEAD_DIMS(REPRO_ARM)
+#undef REPRO_ARM
   }
   return -1;
 }
@@ -1007,19 +994,15 @@ int flash_bwd_launch(const void* q, const void* k, const void* v,
                        Sk, causal, q_offset, sm_scale, s
   if (dtype == 0) {
     switch (D) {
-      case 32: return launch<float, 32>(REPRO_BWD_ARGS);
-      case 64: return launch<float, 64>(REPRO_BWD_ARGS);
-      case 80: return launch<float, 80>(REPRO_BWD_ARGS);
-      case 128: return launch<float, 128>(REPRO_BWD_ARGS);
-      case 192: return launch<float, 192>(REPRO_BWD_ARGS);
+#define REPRO_ARM(d) case d: return launch<float, d>(REPRO_BWD_ARGS);
+      REPRO_HEAD_DIMS(REPRO_ARM)
+#undef REPRO_ARM
     }
   } else if (dtype == 1) {
     switch (D) {
-      case 32: return launch<__nv_bfloat16, 32>(REPRO_BWD_ARGS);
-      case 64: return launch<__nv_bfloat16, 64>(REPRO_BWD_ARGS);
-      case 80: return launch<__nv_bfloat16, 80>(REPRO_BWD_ARGS);
-      case 128: return launch<__nv_bfloat16, 128>(REPRO_BWD_ARGS);
-      case 192: return launch<__nv_bfloat16, 192>(REPRO_BWD_ARGS);
+#define REPRO_ARM(d) case d: return launch<__nv_bfloat16, d>(REPRO_BWD_ARGS);
+      REPRO_HEAD_DIMS(REPRO_ARM)
+#undef REPRO_ARM
     }
   }
 #undef REPRO_BWD_ARGS

@@ -4,10 +4,13 @@
 // tensor-map encoder.
 //
 // Shared-memory tiles are made of swizzle atoms: Atom<D>::kCols columns of
-// a tile (128 bytes at D >= 64, 64 bytes at D = 32) for all its rows, one
+// a tile (128 bytes at D > 32, 64 bytes at D <= 32) for all its rows, one
 // atom after the other. TMA writes them with the matching swizzle and
-// wgmma reads them through descriptors. At D = 80 the last atom holds 16
-// real columns and 48 that the tensor map's out-of-bounds fill sets to 0.
+// wgmma reads them through descriptors. A head dim that is not a whole
+// number of atoms (any multiple of 16 up to 192 but 32, 64, 128, 192)
+// fills its last atom past D with the tensor map's out-of-bounds zeros:
+// at D = 16 the one 32-column atom holds 16 real columns, at D = 80 the
+// second 64-column atom 16.
 #pragma once
 
 #include <cuda.h>          // CUtensorMap and its enums; no libcuda link
@@ -19,14 +22,16 @@ namespace hopper {
 
 template <int D>
 struct Atom {
-  static constexpr int kCols = D >= 64 ? 64 : 32;
+  static_assert(D % 16 == 0 && D >= 16 && D <= 192,
+                "head dims: multiples of 16 up to 192");
+  static constexpr int kCols = D > 32 ? 64 : 32;
   static constexpr int kBytes = kCols * 2;              // bytes per atom row
   static constexpr int kCount = (D + kCols - 1) / kCols;
-  // D rounded up to whole atoms: a head dim that is not a whole number of
-  // atoms (80) is loaded into kPadded columns, the tensor map's zero fill
-  // past its D real ones.
+  // D rounded up to whole atoms (16 -> 32, 48 -> 64, 80..128 -> 128,
+  // 144..192 -> 192): the tiles are kPadded columns wide, the tensor
+  // map's zero fill past the D real ones.
   static constexpr int kPadded = kCount * kCols;
-  static constexpr uint64_t kLayout = D >= 64 ? 1 : 2;  // wgmma: 128B / 64B
+  static constexpr uint64_t kLayout = D > 32 ? 1 : 2;   // wgmma: 128B / 64B
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -321,6 +326,7 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
+  static_assert(D == 32 || D == 64 || D == 128 || D == 192, "padded width");
   if constexpr (D == 32) wgmma_rs_n32(d, a, db);
   if constexpr (D == 64) wgmma_rs_n64(d, a, db);
   if constexpr (D == 128) wgmma_rs_n128(d, a, db);
@@ -366,7 +372,8 @@ constexpr int kEncodeFailed = 100001;
 // A (D, S, heads) bf16 tensor map whose box is one swizzle atom of
 // `rows` rows of one head, so the hardware's zero fill stops at each
 // head's own end, and, where D is not a whole number of atoms, at the
-// row's own end: the last atom's columns past D read as 0.
+// row's own end: the last atom's columns past D read as 0 (at D = 16 the
+// 32-column box is wider than the row itself).
 template <int D>
 int encode(CUtensorMap* map, const void* ptr, int S, int heads, int rows) {
   EncodeTiledFn fn = encode_fn();
@@ -382,7 +389,7 @@ int encode(CUtensorMap* map, const void* ptr, int S, int heads, int rows) {
   const CUresult r = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      D > 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed;
 }

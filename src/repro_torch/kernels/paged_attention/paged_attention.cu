@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "head_dims.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -76,11 +78,13 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 
 // How the lanes of a warp cover a head row of D elements of T: kV
 // vectors of 16 bytes a lane, kL lanes a position (a power of two, so the
-// positions of a warp step tile its 32 lanes). A row of kVec vectors that
-// kL lanes do not split evenly (D = 80 and 192 in bf16: 10 and 24
-// vectors over 16 and 32 lanes; D = 80 in fp32: 20 over 32) leaves the
-// last lanes' vectors past the row: they load nothing, hold zeros and
-// store nothing. fp32 at D = 192 (48 vectors) takes two a lane.
+// positions of a warp step tile its 32 lanes). D = 16 is 2 vectors in
+// bf16 and 4 in fp32, so 16 or 8 positions share a warp step. A row of
+// kVec vectors that kL lanes do not split evenly (D = 80 and 192 in
+// bf16: 10 and 24 vectors over 16 and 32 lanes; D = 80 in fp32: 20 over
+// 32; likewise 48, 96, 112, 144, 160, 176) leaves the last lanes'
+// vectors past the row: they load nothing, hold zeros and store nothing.
+// fp32 above D = 128 (36 to 48 vectors) takes two a lane.
 template <typename T, int D>
 struct Lanes {
   static constexpr int kE = 16 / sizeof(T);   // elements per vector
@@ -343,11 +347,9 @@ int launch_d(int D, const void* q, const void* kp, const void* vp,
              int H, int Hk, int PS, int maxp, int n_split, int min_len,
              float sm_scale, cudaStream_t s) {
   switch (D) {
-    case 32: return launch_r<T, 32>(REPRO_PAGED_ARGS);
-    case 64: return launch_r<T, 64>(REPRO_PAGED_ARGS);
-    case 80: return launch_r<T, 80>(REPRO_PAGED_ARGS);
-    case 128: return launch_r<T, 128>(REPRO_PAGED_ARGS);
-    case 192: return launch_r<T, 192>(REPRO_PAGED_ARGS);
+#define REPRO_ARM(d) case d: return launch_r<T, d>(REPRO_PAGED_ARGS);
+    REPRO_HEAD_DIMS(REPRO_ARM)
+#undef REPRO_ARM
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_PAGED_ARGS

@@ -32,7 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import CudaLibrary
+from repro_torch.kernels._build import HEAD_DIMS, CudaLibrary
 from repro_torch.kernels._tensors import aligned16, run_op
 from repro_torch.kernels.paged_attention.ref import (NEG_INF,
                                                      paged_attention_ref)
@@ -40,8 +40,6 @@ from repro_torch.kernels.paged_attention.ref import (NEG_INF,
 #: ``impl`` values, as for the flash kernel.
 IMPLS = ("kernel", "plain")
 
-#: Head dims the CUDA kernel is instantiated for.
-HEAD_DIMS = (32, 64, 80, 128, 192)
 
 #: Kernel name -> launches so far (bumped only where the kernel launches).
 LAUNCHES: Dict[str, int] = {"paged_attention": 0}

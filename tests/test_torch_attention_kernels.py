@@ -110,9 +110,10 @@ def test_flash_gqa_ratios(J, h, hk):
     np.testing.assert_allclose(f32(got), f32(want), rtol=2e-5, atol=2e-5)
 
 
-# The head dims of hubert-xlarge (1280 / 16 = 80) and nemotron-4-340b
-# (18432 / 96 = 192), which the CUDA kernels take beside 32, 64 and 128.
-NEW_HEAD_DIMS = (80, 192)
+# The head dims of every reduced config (d_model 64 / 4 heads = 16),
+# hubert-xlarge (1280 / 16 = 80) and nemotron-4-340b (18432 / 96 = 192),
+# which the CUDA kernels take beside 32, 64 and 128.
+NEW_HEAD_DIMS = (16, 80, 192)
 
 
 @pytest.mark.parametrize("d", NEW_HEAD_DIMS)
@@ -120,7 +121,7 @@ NEW_HEAD_DIMS = (80, 192)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_new_head_dims_match_pallas(J, d, h, hk, causal):
     """The plain version against the reference's Pallas
-    ``flash_attention_fwd`` (interpret mode) at head dims 80 and 192:
+    ``flash_attention_fwd`` (interpret mode) at head dims 16, 80 and 192:
     MHA and a GQA group of 12, causal and not."""
     qkv = [heads_first(x) for x in make_qkv(50 + d, 1, 128, 128, h, hk, d)]
     got = tflash.flash_attention_fwd(*(tt(x) for x in qkv), causal=causal,
@@ -139,6 +140,30 @@ def test_every_attention_head_dim_has_a_kernel():
             if get(a).uses_attention}
     assert dims, "no attention architecture"
     missing = {a: d for a, d in dims.items()
+               if d not in tflash.HEAD_DIMS or d not in tpaged.HEAD_DIMS}
+    assert not missing, f"head dims without a kernel: {missing}"
+
+
+def test_every_entry_point_head_dim_has_a_kernel():
+    """Every config an entry point builds has a head dim both CUDA
+    wrappers take: ``reduced(get(a))`` for each architecture (what
+    ``launch.serve`` serves), ``launch.train``'s default ``--d-model 128``,
+    and the examples' widths (``serve_lm_torch`` d_model 64,
+    ``train_lm_torch`` d_model 512)."""
+    from repro_torch.configs import get, list_archs, reduced
+    built = {}
+    for a in list_archs():
+        for what, cfg in (("reduced", reduced(get(a))),
+                          ("launch.train", reduced(get(a), d_model=128)),
+                          ("serve_lm_torch", reduced(get(a), d_model=64,
+                                                     vocab=512)),
+                          ("train_lm_torch", reduced(get(a), d_model=512,
+                                                     n_periods=14,
+                                                     vocab=32000))):
+            if cfg.uses_attention:
+                built[(a, what)] = cfg.resolved_head_dim
+    assert built[("qwen1.5-0.5b", "reduced")] == 16
+    missing = {k: d for k, d in built.items()
                if d not in tflash.HEAD_DIMS or d not in tpaged.HEAD_DIMS}
     assert not missing, f"head dims without a kernel: {missing}"
 
@@ -237,6 +262,8 @@ BWD_CASES = [  # (b, s, h, hk, d, causal): GQA rep 1 and 3, padded S
     (2, 128, 4, 4, 32, True), (1, 130, 6, 2, 32, True),
     (2, 256, 3, 1, 64, False), (1, 200, 4, 4, 16, False),
     (1, 300, 6, 2, 32, True),
+    # head dim 16 (every reduced config), causal GQA
+    (1, 130, 8, 2, 16, True),
     # head dims 80 (non-causal MHA, as hubert-xlarge) and 192 (causal GQA
     # 12, as nemotron-4-340b), and each the other way
     (1, 128, 4, 4, 80, False), (1, 130, 24, 2, 80, True),
@@ -409,8 +436,8 @@ def test_paged_bfloat16(J, h, hk, d):
                                        ("bfloat16", 3e-2)])
 def test_paged_new_head_dims_match_pallas(J, d, dtype, tol):
     """The paged wrapper (plain version) and its split arithmetic against
-    the reference's Pallas ``paged_attention`` at head dims 80 and 192,
-    a GQA group of 12, ragged lengths."""
+    the reference's Pallas ``paged_attention`` at head dims 16, 80 and
+    192, a GQA group of 12, ragged lengths."""
     inputs = make_paged(60 + d, 3, 24, 2, d, 32, 16, 4, lens=[1, 40, 64])
     got = check_paged(J, inputs, tol, dtype)
     split = tpaged.paged_attention_split_plain(
@@ -496,11 +523,13 @@ def test_flash_kernel_on_card():
 @pytest.mark.cuda
 def test_paged_kernel_on_card():
     """The CUDA paged kernel equals its plain version on the card,
-    seq_len = 0 included, at head dim 128 and at 80 and 192 with a GQA
-    group of 12 (two CTAs of query heads a KV head), at every split
-    count; an out-of-pool table entry raises."""
+    seq_len = 0 included, at head dim 128, at every other head dim with a
+    GQA group of 12 (two CTAs of query heads a KV head), and at 16 as the
+    reduced configs have it (4 query heads), at every split count; an
+    out-of-pool table entry raises."""
     _need_card()
-    for h, hk, d in ((24, 8, 128), (24, 2, 80), (24, 2, 192)):
+    for h, hk, d in ((24, 8, 128), (4, 4, 16), (4, 1, 16)) + tuple(
+            (24, 2, d) for d in tpaged.HEAD_DIMS if d != 128):
         for dtype, tol in (("float32", 2e-5), ("bfloat16", 3e-2)):
             t = [tt(x, dtype).cuda()
                  for x in make_paged(7, 4, h, hk, d, 64, 16, 4,
@@ -543,6 +572,25 @@ def test_flash_bf16_kernel_on_card(d):
     a = tflash_ops.flash_attention(*t, causal=True, bq=128, bk=128)
     b = tflash_ops.flash_attention(*t, causal=True, bq=64, bk=32)
     np.testing.assert_allclose(f32(a), f32(b), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", tflash.HEAD_DIMS)
+def test_flash_f32_kernel_on_card(d):
+    """The fp32 (CUDA-core) forward kernel against its plain version at
+    every head dim: causal GQA, ragged non-causal Sk, q_offset."""
+    _need_card()
+    for b, sq, sk, h, hk, causal, off in (
+            (2, 256, 256, 8, 2, True, 0), (1, 130, 200, 4, 4, False, 0),
+            (1, 64, 256, 4, 1, True, 192)):
+        t = [tt(heads_first(x)).cuda()
+             for x in make_qkv(12 + d, b, sq, sk, h, hk, d)]
+        got = tflash.flash_attention_fwd(*t, causal=causal, bq=1, bk=1,
+                                         q_offset=off)
+        want = tattention_ref(*t, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(f32(got), f32(want), rtol=2e-5,
+                                   atol=2e-5, err_msg=f"D{d}")
 
 
 @pytest.mark.cuda

@@ -228,3 +228,21 @@ def test_audit_runs_clean(dataset):
     assert auditor.violations_total == 0, auditor.report()
     assert sum(e.audit_violations for e in executed) == 0
     assert auditor.audit() == []
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_numpy_pair_count_matches_reference(d):
+    """The simulated backend's numpy join counts what the reference's
+    does: cross and self joins over several blocks, eps from 0 to past
+    every distance, coordinates of either sign up to 2^30."""
+    from repro.backend.executors import count_similar_pairs_np as jcount
+    rng = np.random.default_rng(40 + d)
+    for n, m, same in ((300, 170, False), (257, 257, True), (1, 90, False),
+                       (0, 5, False)):
+        a = rng.integers(-2 ** 30, 2 ** 30, (n, d)).astype(np.int64)
+        a[: n // 2] //= 2 ** 20                 # a dense cluster too
+        b = a if same else rng.integers(-2 ** 12, 2 ** 12,
+                                        (m, d)).astype(np.int32)
+        for eps in (0, 5, 3000, 2 ** 33):
+            got = count_similar_pairs_np(a, b, eps, same, block=64)
+            assert got == jcount(a, b, eps, same, block=64), (n, m, eps)

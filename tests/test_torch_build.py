@@ -81,3 +81,22 @@ def test_nvcc_gets_the_source_directory(lib, tmp_path, monkeypatch):
     at = cmd.index("-I")
     assert cmd[at + 1] == str(tmp_path)
     assert cmd[-1] == str(lib.source)
+
+
+def test_shared_header_is_included_and_hashed(lib, tmp_path, monkeypatch):
+    """``kernels/head_dims.cuh`` is on every source's include path and in
+    its hash, and the wrappers' ``HEAD_DIMS`` is its list."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention
+    assert lib._include_dirs() == [tmp_path, _build.KERNELS_DIR]
+    assert _build.HEAD_DIMS == tuple(range(16, 193, 16))
+    assert flash_attention.HEAD_DIMS == paged_attention.HEAD_DIMS \
+        == _build.HEAD_DIMS
+    shared = tmp_path / "kernels"
+    shared.mkdir()
+    (shared / "head_dims.cuh").write_text(
+        (_build.KERNELS_DIR / "head_dims.cuh").read_text())
+    monkeypatch.setattr(_build, "KERNELS_DIR", shared)
+    before = lib.path()
+    (shared / "head_dims.cuh").write_text("#pragma once\n")
+    assert lib.path() != before
