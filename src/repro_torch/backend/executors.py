@@ -57,7 +57,7 @@ import torch
 
 from repro_torch.backend.artifacts import ChunkView, JoinArtifactCache, task_coords
 from repro_torch.kernels.simjoin import ops, prune as prune_mod, simjoin
-from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.obs.telemetry import NULL_TELEMETRY
 
 JOIN_BACKENDS = ("numpy", "torch")
 PRUNE_MODES = ("dense", "block", "bitmap", "auto")
@@ -157,14 +157,14 @@ class NumpyJoinExecutor:
         # Block-pair counters are a kernel-path concept; the numpy
         # reference has none (ExecutedQuery fields stay None).
         self.last_stats: Optional[Dict[str, int]] = None
-        # Backends swap in a live tracer at bind time (telemetry on).
-        self.tracer = NULL_TRACER
+        # Backends hand in their telemetry bundle at bind time.
+        self.telemetry = NULL_TELEMETRY
 
     def count_pairs(self, tasks: Sequence[JoinTask], eps: int) -> List[int]:
         """Per-task match counts via the (overridable) numpy predicate
         (ChunkView task sides are unwrapped to the raw arrays the
         predicate expects)."""
-        with self.tracer.span("dispatch", tasks=len(tasks)):
+        with self.telemetry.tracer.span("dispatch", tasks=len(tasks)):
             return [self.join_fn(task_coords(a), task_coords(b), eps, same)
                     for _, a, b, same in tasks]
 
@@ -229,10 +229,10 @@ class TorchJoinExecutor:
         self.artifacts = (artifacts if artifacts is not None
                           else JoinArtifactCache())
         self.last_stats: Optional[Dict[str, int]] = None
-        # Backends swap in a live tracer at bind time (telemetry on);
+        # Backends hand in their telemetry bundle at bind time;
         # prep/dispatch spans bracket the host-side batch build and the
         # kernel-dispatch loop respectively.
-        self.tracer = NULL_TRACER
+        self.telemetry = NULL_TELEMETRY
 
     # ------------------------------------------------ artifact-aware prep
 
@@ -309,7 +309,7 @@ class TorchJoinExecutor:
         wall-clock, and the artifact-cache hit/miss deltas."""
         t0 = time.perf_counter()
         h0, m0 = self.artifacts.hits, self.artifacts.misses
-        with self.tracer.span("prep", tasks=len(tasks)):
+        with self.telemetry.tracer.span("prep", tasks=len(tasks)):
             if self.prune == "dense":
                 batches, stats = self._batches_dense(tasks, by_node)
             else:
@@ -397,7 +397,8 @@ class TorchJoinExecutor:
         bitmap_s = None
         if bitmap and cand:
             tb = time.perf_counter()
-            with self.tracer.span("prep.bitmap", candidates=len(cand)):
+            with self.telemetry.tracer.span("prep.bitmap",
+                                            candidates=len(cand)):
                 refined_cand = []
                 for (i, dkey, a, b, a_s, b_s, same, pairs,
                      dense_total) in cand:
@@ -488,7 +489,7 @@ class TorchJoinExecutor:
         counts = [0] * len(tasks)
         batches, stats = self.iter_batches(tasks, eps)
         t0 = time.perf_counter()
-        with self.tracer.span("dispatch", batches=len(batches)):
+        with self.telemetry.tracer.span("dispatch", batches=len(batches)):
             for batch in batches:
                 got = self.dispatch(batch, eps).cpu().numpy()
                 for i, c in zip(batch.idxs, got):

@@ -86,12 +86,11 @@ class SimulatedBackend:
         registering the join-artifact cache as a residency listener so
         memoized prep artifacts are invalidated in lockstep with
         eviction and split-remap (they never outlive their chunk). The
-        coordinator's telemetry bundle is adopted here, and its tracer
-        handed to the join executor (prep/dispatch spans)."""
+        coordinator's telemetry bundle is adopted here, and handed to the
+        join executor (prep/dispatch spans)."""
         self.coordinator = coordinator
         self.telemetry = coordinator.telemetry
-        if self.telemetry.enabled:
-            self.executor.tracer = self.telemetry.tracer
+        self.executor.telemetry = self.telemetry
         if self.artifacts is not None:
             coordinator.cache.add_listener(self.artifacts)
         # Adopt the coordinator's transient-fault pipeline: the shared

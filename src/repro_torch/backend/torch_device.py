@@ -32,7 +32,6 @@ fields are additive, never substitutes.
 """
 from __future__ import annotations
 
-import contextlib
 import time
 import warnings
 from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Optional,
@@ -338,13 +337,6 @@ class TorchDeviceBackend(SimulatedBackend):
 
     # ----------------------------------------------------------- execution
 
-    def _mirror_device_stats(self) -> None:
-        """Refresh the ``device.*`` registry gauges from the cumulative
-        :attr:`device_stats` counters (telemetry-on callers only)."""
-        reg = self.telemetry.registry
-        for k, v in self.device_stats.items():
-            reg.gauge(f"device.{k}").set(v)
-
     def _ship(self, report: "QueryReport",
               coords_of: Callable[[int], np.ndarray],
               skip: Optional[set] = None
@@ -362,8 +354,6 @@ class TorchDeviceBackend(SimulatedBackend):
                 "ship", routes=len(report.join_plan.transfer_routes)):
             total_s, total_b = self._ship_routes(report, coords_of,
                                                  skip=skip)
-        if self.telemetry.enabled:
-            self._mirror_device_stats()
         return total_s, total_b
 
     def _ship_routes(self, report: "QueryReport",
@@ -437,9 +427,8 @@ class TorchDeviceBackend(SimulatedBackend):
         counts = [0] * len(tasks)
         batches, stats = self.executor.iter_batches(tasks, eps,
                                                     by_node=True)
-        telemetry_on = self.telemetry.enabled
-        dispatch_span = self.telemetry.tracer.begin("dispatch",
-                                                    batches=len(batches))
+        tracer = self.telemetry.tracer
+        dispatch_span = tracer.begin("dispatch", batches=len(batches))
         t0_all = time.perf_counter()
         for batch in batches:
             dev = self.device_for_node(batch.node)
@@ -462,14 +451,8 @@ class TorchDeviceBackend(SimulatedBackend):
                         self._pinned_by_chunk.setdefault(
                             kb[0], set()).add(ckey)
                     self._enforce_pinned_cap()
-            # Profiler annotation: names this kernel launch in any
-            # captured torch.profiler trace (telemetry-on only — the off
-            # path stays annotation-free).
-            annot = (torch.profiler.record_function(
-                f"simjoin.node{batch.node}") if telemetry_on
-                else contextlib.nullcontext())
             t0 = time.perf_counter()
-            with annot:
+            with tracer.span("simjoin", node=batch.node):
                 got = self.executor.dispatch(batch, eps, arrays=arrays)
                 _sync(dev)
             node_time[batch.node] = (node_time.get(batch.node, 0.0)
@@ -477,9 +460,7 @@ class TorchDeviceBackend(SimulatedBackend):
             for i, c in zip(batch.idxs, got.cpu().numpy()):
                 counts[i] = int(c)
         stats["dispatch_s"] = time.perf_counter() - t0_all
-        self.telemetry.tracer.end(dispatch_span)
-        if telemetry_on:
-            self._mirror_device_stats()
+        tracer.end(dispatch_span)
         return counts, max(node_time.values(), default=0.0), stats
 
     def _count_tasks(self, tasks, eps: int

@@ -222,7 +222,7 @@ class CacheCoordinator:
         self.faults = make_faults(faults, clock=self.clock)
         self.retry_policy = make_retry(retry)
         self.retrier = (Retrier(self.retry_policy, clock=self.clock,
-                                tracer=self.telemetry.tracer)
+                                telemetry=self.telemetry)
                         if self.faults is not None else None)
         self.auditor: Optional[InvariantAuditor] = None
         if audit == "on" or (audit == "auto" and self.faults is not None):
@@ -253,7 +253,7 @@ class CacheCoordinator:
         # :meth:`drain_exec_counters`); ``workload_summary`` surfaces
         # anything still pending after the last query, so post-workload
         # events are never silently lost.
-        self.events = EventChannel(self.telemetry.registry)
+        self.events = EventChannel()
         self.join_history: List[JoinRecord] = []   # Alg. 3 workload W
         self.query_counter = 0
         # Queries that went through the planning pipeline (a result-cache
@@ -531,7 +531,7 @@ class CacheCoordinator:
         the replica-skew gauge (max/mean of cached bytes per node; 1.0 =
         perfectly balanced, 0 = empty cache), a residency-churn histogram
         (symmetric difference of the resident set vs the previous
-        round), and ``coord.*`` gauge mirrors of :attr:`stats`."""
+        round)."""
         reg = self.telemetry.registry
         used = self.cache.bytes_by_node(chunk_bytes)
         budget = max(self.cache.node_budget, 1)
@@ -545,8 +545,6 @@ class CacheCoordinator:
         reg.histogram("cache.residency_churn").observe(
             len(resident ^ self._prev_resident))
         self._prev_resident = resident
-        for k, v in self.stats.items():
-            reg.gauge(f"coord.{k}").set(v)
 
     # ------------------------------------------------ result-cache tier
 

@@ -12,7 +12,9 @@ bit-exact resume after failures.
 
 The port of ``repro/data/pipeline.py`` over the port's ``arrayio`` and
 ``core``: batches are numpy arrays, equal bit for bit to the
-reference's; the trainer moves them to its device.
+reference's; the trainer moves them to its device. A pipeline's
+``telemetry`` is its cluster's too: ``pipeline.next_batch`` spans hold
+the cluster's ``query`` spans, then ``pipeline.assemble``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.arrayio.generator import GeneratedFile
 from repro_torch.core.cluster import RawArrayCluster
 from repro_torch.core.coordinator import SimilarityJoinQuery
 from repro_torch.core.geometry import Box, points_in_box
+from repro_torch.obs.telemetry import NULL_TELEMETRY, Telemetry
 
 
 def make_token_corpus(n_samples: int, max_len: int, vocab: int,
@@ -71,13 +74,14 @@ class RawArrayTokenPipeline:
     def __init__(self, catalog: Catalog, reader: FileReader, *,
                  n_hosts: int, host_budget_bytes: int, batch: int,
                  seq: int, policy: str = "cost", min_cells: int = 2048,
-                 pad_id: int = 0):
+                 pad_id: int = 0, telemetry: Telemetry = NULL_TELEMETRY):
         # The reference's cluster defaults: plan and read on the host,
         # execute no join (the port's cluster defaults to the card).
         self.cluster = RawArrayCluster(
             catalog, reader, n_hosts, host_budget_bytes, policy=policy,
             min_cells=min_cells, execute_joins=False, backend="simulated",
-            join_backend="numpy")
+            join_backend="numpy", telemetry=telemetry)
+        self.telemetry = telemetry
         self.reader = reader
         self.batch = batch
         self.seq = seq
@@ -113,17 +117,25 @@ class RawArrayTokenPipeline:
         the queried chunks' cells scattered into (batch, seq + 1)
         tokens; returns int32 ``tokens`` and next-token ``labels`` (-1
         where no token follows)."""
-        s_lo, s_hi = self._sample_range()
-        qbox = Box((s_lo, 1), (s_hi - 1, self.seq + 1))
-        ex = self.cluster.run_query(SimilarityJoinQuery(qbox, eps=1))
-        rep = ex.report
-        self.stats.steps += 1
-        scanned = sum(rep.scan_bytes_by_node.values())
-        self.stats.bytes_scanned += scanned
-        self.stats.files_scanned += len(rep.files_scanned)
-        if scanned == 0:
-            self.stats.cache_hit_steps += 1
+        tracer = self.telemetry.tracer
+        with tracer.span("pipeline.next_batch"):
+            s_lo, s_hi = self._sample_range()
+            qbox = Box((s_lo, 1), (s_hi - 1, self.seq + 1))
+            ex = self.cluster.run_query(SimilarityJoinQuery(qbox, eps=1))
+            rep = ex.report
+            self.stats.steps += 1
+            scanned = sum(rep.scan_bytes_by_node.values())
+            self.stats.bytes_scanned += scanned
+            self.stats.files_scanned += len(rep.files_scanned)
+            if scanned == 0:
+                self.stats.cache_hit_steps += 1
+            with tracer.span("pipeline.assemble"):
+                return self._assemble(rep, qbox, s_lo)
 
+    def _assemble(self, rep, qbox: Box, s_lo: int) -> Dict[str, np.ndarray]:
+        """The queried chunks' cells of ``qbox`` scattered into the batch
+        (rows from sample ``s_lo``), and the pipeline's position
+        advanced."""
         out = np.full((self.batch, self.seq + 1), self.pad_id, np.int64)
         valid = np.zeros((self.batch, self.seq + 1), bool)
         coord = self.cluster.coordinator
@@ -158,13 +170,15 @@ def build_pipeline(tmpdir: str, *, n_samples: int = 256, seq: int = 64,
                    vocab: int = 512, n_files: int = 8, n_hosts: int = 4,
                    batch: int = 16, host_budget_bytes: int = 1 << 20,
                    fmt: str = "hdf5", policy: str = "cost",
-                   seed: int = 0) -> RawArrayTokenPipeline:
+                   seed: int = 0, telemetry: Telemetry = NULL_TELEMETRY
+                   ) -> RawArrayTokenPipeline:
     """A token corpus from ``seed`` written as raw files of ``fmt`` over
-    ``n_hosts``, and a pipeline over it."""
+    ``n_hosts``, and a pipeline over it that records into
+    ``telemetry``."""
     files, _ = make_token_corpus(n_samples, seq, vocab, n_files, seed)
     catalog, data = build_catalog(files, tmpdir, fmt, n_hosts)
     reader = FileReader(catalog, data)
     return RawArrayTokenPipeline(
         catalog, reader, n_hosts=n_hosts,
         host_budget_bytes=host_budget_bytes, batch=batch, seq=seq,
-        policy=policy)
+        policy=policy, telemetry=telemetry)

@@ -21,6 +21,7 @@ from typing import Any, Callable, Mapping, Optional, Tuple, Union
 from repro_torch.core.geometry import Box, residual_boxes
 from repro_torch.faults.errors import RetryExhaustedError, TransientFaultError
 from repro_torch.obs.clock import Clock, MONOTONIC, as_clock
+from repro_torch.obs.telemetry import NULL_TELEMETRY, Telemetry
 
 
 @dataclass(frozen=True)
@@ -84,13 +85,13 @@ class Retrier:
 
     def __init__(self, policy: RetryPolicy,
                  clock: Optional[Clock] = None,
-                 tracer: Any = None) -> None:
+                 telemetry: Telemetry = NULL_TELEMETRY) -> None:
         """``clock`` drives the timeout budget and (when it supports
-        ``advance``) virtual backoff sleeps; ``tracer`` (optional) wraps
+        ``advance``) virtual backoff sleeps; ``telemetry``'s tracer wraps
         each re-attempt in a ``retry`` span."""
         self.policy = policy
         self.clock = as_clock(clock) if clock is not None else MONOTONIC
-        self.tracer = tracer
+        self.telemetry = telemetry
         self.retries = 0
         self.giveups = 0
         self.timeouts = 0
@@ -103,10 +104,10 @@ class Retrier:
         last: Optional[BaseException] = None
         for attempt in range(policy.max_attempts):
             try:
-                if attempt == 0 or self.tracer is None:
+                if attempt == 0:
                     return fn(attempt)
-                with self.tracer.span("retry", cat="faults", op=op,
-                                      attempt=attempt):
+                with self.telemetry.tracer.span("retry", cat="faults",
+                                                op=op, attempt=attempt):
                     return fn(attempt)
             except TransientFaultError as e:
                 last = e

@@ -12,7 +12,10 @@ production mesh for ``--scale full``; this machine is not a pod, so
 ``--scale full`` trains the full configuration on the host mesh, and
 the production meshes are reached by the dry-run
 (``repro_torch.launch.dryrun``). ``--device`` (default ``cuda``) picks
-the device; ``cpu`` runs the kernels' plain versions over gloo.
+the device; ``cpu`` runs the kernels' plain versions over gloo. A
+``telemetry`` handed to :func:`main` is the pipeline's and the step's,
+and traces each batch's placement (``launch.place_batch``) and the
+loss's read back (``launch.readback``) besides.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch qwen1.5-0.5b --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
@@ -31,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import build_pipeline
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.model import init_params, resolve_device
+from repro_torch.obs.telemetry import NULL_TELEMETRY, Telemetry
 from repro_torch.sharding.local import is_dtensor
 from repro_torch.sharding.partition import (ShardingPolicy, batch_spec,
                                             make_policy, param_specs, place,
@@ -50,16 +54,20 @@ def place_params(params: Tree, mesh, policy: ShardingPolicy) -> Tree:
     return place_tree(params, param_specs(params, mesh, policy), mesh)
 
 
-def place_batch(batch: dict, mesh, policy: ShardingPolicy) -> dict:
+def place_batch(batch: dict, mesh, policy: ShardingPolicy,
+                telemetry: Telemetry = NULL_TELEMETRY) -> dict:
     """Each batch field as a ``DTensor`` on ``mesh``, its batch dim over
     the DP axes by ``batch_spec``."""
-    return {k: place(v, batch_spec(mesh, policy, v.shape[0], v.ndim - 1),
-                     mesh) for k, v in batch.items()}
+    with telemetry.tracer.span("launch.place_batch"):
+        return {k: place(v, batch_spec(mesh, policy, v.shape[0],
+                                       v.ndim - 1), mesh)
+                for k, v in batch.items()}
 
 
-def scalar(x) -> float:
+def scalar(x, telemetry: Telemetry = NULL_TELEMETRY) -> float:
     """A metric (plain or ``DTensor``) as a Python float."""
-    return float(x.full_tensor() if is_dtensor(x) else x)
+    with telemetry.tracer.span("launch.readback"):
+        return float(x.full_tensor() if is_dtensor(x) else x)
 
 
 def placed_state(cfg: ModelConfig, opt_cfg: OptimizerConfig, seed: int,
@@ -71,8 +79,9 @@ def placed_state(cfg: ModelConfig, opt_cfg: OptimizerConfig, seed: int,
     return params, adamw_init(params, opt_cfg)
 
 
-def main(argv=None) -> dict:
-    """Parse the flags, train, and return ``{"losses", "pipeline_stats"}``."""
+def main(argv=None, telemetry: Telemetry = NULL_TELEMETRY) -> dict:
+    """Parse the flags, train, and return ``{"losses", "pipeline_stats"}``;
+    the job records into ``telemetry``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list_archs(), default="qwen1.5-0.5b")
     ap.add_argument("--scale", choices=["reduced", "full"], default="reduced")
@@ -108,14 +117,15 @@ def main(argv=None) -> dict:
         data_dir, n_samples=max(args.batch * 8, 64), seq=args.seq,
         vocab=cfg.vocab_size, n_hosts=4, batch=args.batch,
         policy=args.data_policy,
-        host_budget_bytes=8 << 20, seed=args.seed)
+        host_budget_bytes=8 << 20, seed=args.seed, telemetry=telemetry)
 
     opt_cfg = OptimizerConfig(peak_lr=args.lr, warmup_steps=10,
                               total_steps=args.steps)
     mesh = make_host_mesh(device=dev)
     policy = make_policy(cfg, mesh)
     params, opt_state = placed_state(cfg, opt_cfg, args.seed, mesh, policy)
-    step_fn = make_train_step(cfg, opt_cfg, n_microbatches=args.microbatches)
+    step_fn = make_train_step(cfg, opt_cfg, n_microbatches=args.microbatches,
+                              telemetry=telemetry)
 
     start = 0
     ckpt = None
@@ -135,10 +145,11 @@ def main(argv=None) -> dict:
     for step in range(start, args.steps):
         batch = pipeline.next_batch()
         batch = place_batch({k: torch.from_numpy(v).to(dev)
-                             for k, v in batch.items()}, mesh, policy)
+                             for k, v in batch.items()}, mesh, policy,
+                            telemetry)
         with implicit_replication():
             params, opt_state, metrics = step_fn(params, opt_state, batch)
-        losses.append(scalar(metrics["loss"]))
+        losses.append(scalar(metrics["loss"], telemetry))
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.time() - t0
             print(f"step {step:5d} loss {losses[-1]:.4f} "

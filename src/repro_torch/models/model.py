@@ -24,6 +24,8 @@ versions instead of the kernels.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -36,6 +38,7 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (Params, apply_mlp, apply_norm, embed,
                                        init_embedding, init_mlp, init_norm,
                                        rope_tables, unembed)
+from repro_torch.obs.telemetry import NULL_TELEMETRY, Telemetry
 from repro_torch.sharding.local import pick_last, seq_parallel
 
 DecodeState = List[Dict[str, torch.Tensor]]
@@ -108,7 +111,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 # ---------------------------------------------------------------- forward --
 
-def _apply_mlp(bp: Params, h: torch.Tensor, cfg: ModelConfig, mlp: str
+def _apply_mlp(bp: Params, h: torch.Tensor, cfg: ModelConfig, mlp: str,
+               telemetry: Telemetry = NULL_TELEMETRY
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's MLP half with its residual: (h, the MoE aux loss or
     None)."""
@@ -117,30 +121,39 @@ def _apply_mlp(bp: Params, h: torch.Tensor, cfg: ModelConfig, mlp: str
     hn = apply_norm(bp["norm2"], h, cfg.norm_type)
     if mlp == "dense":
         return h + apply_mlp(bp["mlp"], hn, cfg.mlp_type), None
-    y, aux = moe_mod.moe_forward(bp["mlp"], hn, cfg)
+    y, aux = moe_mod.moe_forward(bp["mlp"], hn, cfg, telemetry)
     return h + y, aux
 
 
 def _apply_block_seq(bp: Params, h: torch.Tensor, cfg: ModelConfig,
                      mixer: str, mlp: str, positions: torch.Tensor,
-                     causal: bool, attention_impl: str, impl: str, rope
+                     causal: bool, attention_impl: str, impl: str, rope,
+                     telemetry: Telemetry, index: int
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One block over a full sequence: (h, the fp32 MoE aux loss or
-    None)."""
-    hn = apply_norm(bp["norm1"], h, cfg.norm_type)
-    if mixer == "attn":
-        mixed = attn.attention_forward(bp["mixer"], hn, cfg, positions,
-                                       causal, attention_impl, impl, rope)
-    elif mixer == "mamba":
-        mixed, _ = ssm.mamba_forward(bp["mixer"], hn, cfg)
-    elif mixer == "mlstm":
-        mixed, _ = ssm.mlstm_forward(bp["mixer"], hn, cfg,
-                                     impl=cfg.mlstm_impl)
-    elif mixer == "slstm":
-        mixed, _ = ssm.slstm_forward(bp["mixer"], hn, cfg)
-    else:
-        raise ValueError(mixer)
-    return _apply_mlp(bp, h + mixed, cfg, mlp)
+    """Block ``index`` over a full sequence, in a ``model.layer`` span:
+    (h, the fp32 MoE aux loss or None)."""
+    with telemetry.tracer.span("model.layer", layer=index):
+        hn = apply_norm(bp["norm1"], h, cfg.norm_type)
+        if mixer == "attn":
+            mixed = attn.attention_forward(bp["mixer"], hn, cfg, positions,
+                                           causal, attention_impl, impl,
+                                           rope)
+        elif mixer == "mamba":
+            mixed, _ = ssm.mamba_forward(bp["mixer"], hn, cfg)
+        elif mixer == "mlstm":
+            mixed, _ = ssm.mlstm_forward(bp["mixer"], hn, cfg,
+                                         impl=cfg.mlstm_impl)
+        elif mixer == "slstm":
+            mixed, _ = ssm.slstm_forward(bp["mixer"], hn, cfg)
+        else:
+            raise ValueError(mixer)
+        return _apply_mlp(bp, h + mixed, cfg, mlp, telemetry)
+
+
+def _remat_contexts(telemetry: Telemetry):
+    """``checkpoint``'s ``context_fn``: the forward as it is, and the
+    recompute marked on ``telemetry`` so that it counts nothing twice."""
+    return contextlib.nullcontext(), telemetry.recompute()
 
 
 def _logits(params: Params, cfg: ModelConfig, h: torch.Tensor
@@ -158,7 +171,8 @@ def forward(params: Params, cfg: ModelConfig, *,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             attention_impl: str = "auto", remat: bool = False,
-            impl: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
+            impl: str = "kernel", telemetry: Telemetry = NULL_TELEMETRY
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (fp32 logits (B, S, V), the fp32
     aux loss summed over the MoE layers, 0 without any).
 
@@ -169,7 +183,9 @@ def forward(params: Params, cfg: ModelConfig, *,
     recorded) checkpoints every layer, as the reference checkpoints every
     period: a layer keeps only its input, and its forward runs again in
     the backward pass (the whole layer is recomputed; the reference's
-    policy keeps its non-batched dot outputs)."""
+    policy keeps its non-batched dot outputs). ``telemetry`` traces each
+    layer and the head (the recomputed layers too) and counts the MoE
+    layers' routing once."""
     parts = []
     if embeds is not None:
         parts.append(embeds.to(torch.bfloat16))
@@ -183,16 +199,20 @@ def forward(params: Params, cfg: ModelConfig, *,
     causal = not cfg.encoder_only
     remat = remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for layer, (mixer, mlp) in zip(params["layers"], layer_kinds(cfg)):
+    marks = {"context_fn": functools.partial(_remat_contexts, telemetry)} \
+        if telemetry.enabled else {}
+    for i, (layer, (mixer, mlp)) in enumerate(zip(params["layers"],
+                                                  layer_kinds(cfg))):
         if cfg.seq_parallel:
             h = seq_parallel(h)
         args = (layer, h, cfg, mixer, mlp, positions, causal,
-                attention_impl, impl, rope)
-        h, a = checkpoint(_apply_block_seq, *args, use_reentrant=False) \
-            if remat else _apply_block_seq(*args)
+                attention_impl, impl, rope, telemetry, i)
+        h, a = checkpoint(_apply_block_seq, *args, use_reentrant=False,
+                          **marks) if remat else _apply_block_seq(*args)
         if a is not None:
             aux = aux + a
-    return _logits(params, cfg, h), aux
+    with telemetry.tracer.span("model.head"):
+        return _logits(params, cfg, h), aux
 
 
 # ----------------------------------------------------------------- decode --

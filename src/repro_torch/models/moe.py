@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Params, matmul, normal
+from repro_torch.obs.telemetry import NULL_TELEMETRY, Telemetry
 from repro_torch.sharding.local import (is_dtensor, on_local_shards,
                                         replicated, unreduced)
 
@@ -130,6 +131,16 @@ def assign(probs: torch.Tensor, experts: torch.Tensor, cfg: ModelConfig
     return Routing(gates * keep, experts, pos, keep, capacity, aux)
 
 
+def _count(telemetry: Telemetry, r: Routing, E: int) -> None:
+    """The layer's routed (token, k) pairs, kept pairs and expert slots
+    into ``telemetry``'s counters ``moe.pairs``, ``moe.kept_pairs`` and
+    ``moe.slots`` (the kept ones stay on the device until it stops)."""
+    if telemetry.counting:
+        telemetry.count("moe.pairs", r.keep.numel())
+        telemetry.count("moe.kept_pairs", r.keep.sum())
+        telemetry.count("moe.slots", E * r.capacity)
+
+
 def _dispatch_sort(xt: torch.Tensor, r: Routing, E: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(xe (E, C, d), slot (T, K)): each kept (token, k) copied into row
@@ -213,7 +224,8 @@ def _shared(params: Params, x: torch.Tensor, cfg: ModelConfig
 
 
 def _routed_on_mesh(params: Params, x: torch.Tensor, cfg: ModelConfig,
-                    einsum: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                    einsum: bool, telemetry: Telemetry
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed half of :func:`moe_forward` on a (B, S, d) ``DTensor``.
 
     Routing couples every token of the batch (the capacity and the queue
@@ -228,11 +240,15 @@ def _routed_on_mesh(params: Params, x: torch.Tensor, cfg: ModelConfig,
     E = cfg.moe.n_experts
     B, S, d = x.shape
     rep = replicated(x)
+    tracer = telemetry.tracer
 
     def route_dispatch(x, router):
         xt = x.reshape(B * S, d)
-        r = route(router, xt, cfg)
-        xe, how = _dispatch(xt, r, E, einsum)
+        with tracer.span("moe.route"):
+            r = route(router, xt, cfg)
+        _count(telemetry, r, E)
+        with tracer.span("moe.dispatch"):
+            xe, how = _dispatch(xt, r, E, einsum)
         return xe, how, r.gates, r.aux
 
     def combine(ye, how, gates):
@@ -243,30 +259,43 @@ def _routed_on_mesh(params: Params, x: torch.Tensor, cfg: ModelConfig,
             x, params["router"])
     experts = [p if p == Shard(0) else Replicate()
                for p in params["w_in"].placements]
-    ye = _experts(params, xe.redistribute(xe.device_mesh, experts), cfg)
-    y = on_local_shards(combine, x, (rep, rep, rep), rep)(
-        ye.redistribute(ye.device_mesh, rep), how, gates)
-    return y.redistribute(x.device_mesh, unreduced(x)), aux
+    with tracer.span("moe.experts"):
+        ye = _experts(params, xe.redistribute(xe.device_mesh, experts), cfg)
+    with tracer.span("moe.combine"):
+        y = on_local_shards(combine, x, (rep, rep, rep), rep)(
+            ye.redistribute(ye.device_mesh, rep), how, gates)
+        return y.redistribute(x.device_mesh, unreduced(x)), aux
 
 
-def moe_forward(params: Params, x: torch.Tensor, cfg: ModelConfig
+def moe_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                telemetry: Telemetry = NULL_TELEMETRY
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), fp32 aux loss). On ``DTensor``s the
-    routed experts run as :func:`_routed_on_mesh` says."""
+    routed experts run as :func:`_routed_on_mesh` says. ``telemetry``
+    traces each stage (``moe.route``, ``moe.dispatch``, ``moe.experts``,
+    ``moe.combine``, ``moe.shared``) and counts the routing
+    (:func:`_count`)."""
     einsum = getattr(cfg, "moe_dispatch", "sort") == "einsum"
+    tracer = telemetry.tracer
     if is_dtensor(x):
-        y, aux = _routed_on_mesh(params, x, cfg, einsum)
-        if "sh_in" in params:
-            y = y + _shared(params, x, cfg)
-        return y, aux
-    B, S, d = x.shape
-    xt = x.reshape(B * S, d)
-    r = route(params["router"], xt, cfg)
-    xe, how = _dispatch(xt, r, cfg.moe.n_experts, einsum)
-    y = _combine(_experts(params, xe, cfg), how, r.gates, einsum, x.dtype)
-    y = y.reshape(B, S, d)
+        y, aux = _routed_on_mesh(params, x, cfg, einsum, telemetry)
+    else:
+        B, S, d = x.shape
+        E = cfg.moe.n_experts
+        xt = x.reshape(B * S, d)
+        with tracer.span("moe.route"):
+            r = route(params["router"], xt, cfg)
+        _count(telemetry, r, E)
+        with tracer.span("moe.dispatch"):
+            xe, how = _dispatch(xt, r, E, einsum)
+        with tracer.span("moe.experts"):
+            ye = _experts(params, xe, cfg)
+        with tracer.span("moe.combine"):
+            y = _combine(ye, how, r.gates, einsum, x.dtype).reshape(B, S, d)
+        aux = r.aux
     if "sh_in" in params:
-        # on x (B, S, d), as the mesh path takes it: x's gradient sums
-        # the routed and the shared part in one order on both paths
-        y = y + _shared(params, x, cfg)
-    return y, r.aux
+        # on x (B, S, d) on both paths: x's gradient sums the routed and
+        # the shared part in one order on both
+        with tracer.span("moe.shared"):
+            y = y + _shared(params, x, cfg)
+    return y, aux

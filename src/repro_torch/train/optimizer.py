@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.obs.telemetry import NULL_TELEMETRY, Telemetry
 from repro_torch.train.tree import Tree, leaves, tree_map
 
 
@@ -72,7 +73,8 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params: Tree, grads: Tree, state: Dict[str, Any],
-                 cfg: OptimizerConfig, decay_mask: Optional[Tree] = None
+                 cfg: OptimizerConfig, decay_mask: Optional[Tree] = None,
+                 telemetry: Telemetry = NULL_TELEMETRY
                  ) -> Tuple[Tree, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step after clipping the gradients to ``clip_norm`` by
     their global norm. Each leaf is updated in fp32 and written back in
@@ -80,30 +82,38 @@ def adamw_update(params: Tree, grads: Tree, state: Dict[str, Any],
     only, or to those whose entry in ``decay_mask`` (a tree of bools
     shaped like ``params``) is true. ``params`` and the moments are
     updated in place; returns ``(params, {"m", "v", "count"}, {"lr",
-    "grad_norm"})``."""
-    count = state["count"] + 1
-    lr = lr_schedule(cfg, count)
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
-                        max=1.0)
-    count_f = count.to(torch.float32)
-    bc1 = 1 - cfg.b1 ** count_f
-    bc2 = 1 - cfg.b2 ** count_f
-    decay = [p.ndim >= 2 for p in leaves(params)] if decay_mask is None \
-        else leaves(decay_mask)
-    for p, g, m, v, dk in zip(leaves(params), leaves(grads),
-                              leaves(state["m"]), leaves(state["v"]), decay):
-        g32 = g.to(torch.float32) * scale
-        m32 = m.to(torch.float32) * cfg.b1 + (1 - cfg.b1) * g32
-        v32 = v.to(torch.float32) * cfg.b2 + (1 - cfg.b2) * torch.square(
-            g32)
-        step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-        p32 = p.to(torch.float32)
-        if dk:                  # no decay on norms / biases
-            step = step + cfg.weight_decay * p32
-        p.copy_(p32 - lr * step)
-        m.copy_(m32)
-        v.copy_(v32)
+    "grad_norm"})``. The update is ``telemetry``'s ``train.optimizer``
+    span: ``optimizer.norm`` (the clipping scale), then
+    ``optimizer.adamw`` (every leaf's update)."""
+    tracer = telemetry.tracer
+    with tracer.span("train.optimizer"):
+        count = state["count"] + 1
+        lr = lr_schedule(cfg, count)
+        with tracer.span("optimizer.norm"):
+            gnorm = global_norm(grads)
+            scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm,
+                                                            min=1e-12),
+                                max=1.0)
+        count_f = count.to(torch.float32)
+        bc1 = 1 - cfg.b1 ** count_f
+        bc2 = 1 - cfg.b2 ** count_f
+        decay = [p.ndim >= 2 for p in leaves(params)] \
+            if decay_mask is None else leaves(decay_mask)
+        with tracer.span("optimizer.adamw"):
+            for p, g, m, v, dk in zip(leaves(params), leaves(grads),
+                                      leaves(state["m"]),
+                                      leaves(state["v"]), decay):
+                g32 = g.to(torch.float32) * scale
+                m32 = m.to(torch.float32) * cfg.b1 + (1 - cfg.b1) * g32
+                v32 = v.to(torch.float32) * cfg.b2 + \
+                    (1 - cfg.b2) * torch.square(g32)
+                step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+                p32 = p.to(torch.float32)
+                if dk:                  # no decay on norms / biases
+                    step = step + cfg.weight_decay * p32
+                p.copy_(p32 - lr * step)
+                m.copy_(m32)
+                v.copy_(v32)
     metrics = {"lr": lr, "grad_norm": gnorm}
     return params, {"m": state["m"], "v": state["v"], "count": count}, \
         metrics
