@@ -6,10 +6,10 @@ Needs one CUDA card (an H100 for the kernels' ``sm_90a`` build) and the
 CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
 
   1. device  — the card's name and power limit (``nvidia-smi``);
-  2. build   — compile the four CUDA sources with nvcc, one process each,
+  2. build   — compile the five CUDA sources with nvcc, one process each,
                all started together: simjoin.cu is waited for, the three
-               attention sources build on while the join group (3-6)
-               runs and are waited for after it (seconds, ptxas
+               attention sources and adamw.cu build on while the join
+               group (3-6) runs and are waited for after it (seconds, ptxas
                registers / static shared memory / spills of every
                kernel, and the dynamic shared memory of each flash
                kernel);
@@ -184,7 +184,17 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                held as in 21 and an engine run (4 slots, max_len 128, 4
                requests of 8 shared + 8 own tokens, 8 new: 8 batched
                decode steps) held as in 16;
- 24. launch-train — llama3.2-3b at full width and depth trained through
+ 24. adamw   — the AdamW kernels on the benchmark cell's deepseek-moe-16b
+               tree (4 layers, 55 leaves) and on llama3.2-3b's (254):
+               ``adamw_update`` with the kernels over the whole tree, as
+               the train step calls it, against the plain version leaf by
+               leaf from the same start (one ulp of bf16, 1e-6 of fp32),
+               and again bit for bit; ``adamw_update``
+               timed with the kernels and with the plain version, the
+               norm's kernels alone, ``torch._fused_adamw_`` (timed only)
+               and the bound, 24 bytes a bf16 parameter with fp32
+               moments at 3.35 TB/s;
+ 25. launch-train — llama3.2-3b at full width and depth trained through
                ``repro_torch.launch.train``'s placement code on a (1, 1)
                NCCL mesh: parameters, AdamW moments and batches are
                DTensors, the flash kernels run on each rank's local
@@ -192,14 +202,20 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                on the batches of phase 12; launch counts set to 0 before
                and read after; losses and grad norms equal the unplaced
                steps' bit for bit (phase 12's, or the same steps run
-               here when the train group is not run);
- 25. launch-roofline — the host's cost of one kernel launch (a stream of
+               here when the train group is not run); the same placed
+               steps again with the plain AdamW update (the step before
+               the AdamW kernels): no AdamW kernel launched, the first
+               loss equal and the first grad norm within 1e-6 relative
+               of the kernels' steps; then the plain update with the
+               kernels' grad norms replayed into it, its losses equal
+               to the kernels' bit for bit;
+ 26. launch-roofline — the host's cost of one kernel launch (a stream of
                tiny ops timed with the host clock and CUDA events), then
                the dry-run's analyzer on the same cell (fake tensors, a
                one-rank fake mesh, the H100 model): its roofline terms
                beside the measured step, the compute and memory terms
                each at most the measured step;
- 26. gates   — the caching engine's seven CI gates
+ 27. gates   — the caching engine's seven CI gates
                (``tools/smoke_torch.py``: artifact_counters, bitmap_prune,
                mqo, trace, failover, chaos, audit) at their tools' sizes
                on ``backend="torch_device"`` through the CUDA simjoin
@@ -222,17 +238,24 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
 
 ``--phases`` runs some groups of these (join: 2-6, attn: 7-10, train:
 11-14, moe: 15-18, ssm: 19, jamba: 20, hubert: 21, nemotron: 22, archs:
-23, launch: 24-25, gates: 26; the build and device lines always); the
-default is all of them.
+23, adamw: 24, launch: 25-26, gates: 27; the build and device lines
+always); the default is all of them.
+
+Every training phase (12, 18, 19, 21, 25) counts the AdamW kernels'
+launches beside the attention kernels' and holds them to the launches
+of one kernel update a step.
 
 Prints the kernels' JSON record (each kernel's row also gives its
-launches in every phase from 15 on under ``phase_launches`` and its
-replays at model shapes under ``shapes``) and the card's name and power
-limit on the two lines before the last, and ``{"ok": true, "device": ...}`` last.
+launches in phase 12 and every phase from 15 on under
+``phase_launches``, the adamw row's ``launches`` those of phase 18, and
+its replays at model shapes under ``shapes``) and the card's name and
+power limit on the two lines before the last, and ``{"ok": true,
+"device": ...}`` last.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -260,6 +283,7 @@ from repro_torch.core.cluster import (RawArrayCluster,  # noqa: E402
                                       workload_summary)
 from repro_torch.core.workload import geo_workload, ptf2_workload  # noqa: E402
 from repro_torch.kernels._build import build_all  # noqa: E402
+from repro_torch.kernels.adamw import adamw as kadamw  # noqa: E402
 from repro_torch.kernels.simjoin import ops, prune, simjoin  # noqa: E402
 from repro_torch.kernels.simjoin.ref import count_pairs_ref  # noqa: E402
 from repro_torch.configs import get as get_config  # noqa: E402
@@ -288,15 +312,16 @@ from repro_torch.serve.serve_step import make_prefill_step  # noqa: E402
 from repro_torch.train.checkpoint import (AsyncCheckpointer,  # noqa: E402
                                           latest_checkpoint,
                                           restore_checkpoint)
-from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
-                                         adamw_init, adamw_update)
+from repro_torch.train.optimizer import (  # noqa: E402
+    OptimizerConfig, adamw_init, adamw_update, step_scalars, sum_squares,
+    update_leaf)
 from repro_torch.train.train_step import (  # noqa: E402
     loss_fn, make_train_step, reference_decay_mask, value_and_grad)
 from repro_torch.train.tree import leaves, named_leaves, tree_map  # noqa: E402
 
 # The phases in groups, in the order they run; ``--phases`` picks some.
 PHASE_GROUPS = ("join", "attn", "train", "moe", "ssm", "jamba", "hubert",
-                "nemotron", "archs", "launch", "gates")
+                "nemotron", "archs", "adamw", "launch", "gates")
 N_NODES = 8
 KERNEL_SRC = "src/repro_torch/kernels/simjoin/simjoin.cu"
 SOURCES = {
@@ -1252,10 +1277,29 @@ def phase_attention_kernels(dev):
 
 
 def zero_launches():
-    """Set every attention-kernel launch count to 0."""
+    """Set every attention-kernel and AdamW-kernel launch count to 0."""
     for name in flash.LAUNCHES:
         flash.LAUNCHES[name] = 0
     paged.LAUNCHES["paged_attention"] = 0
+    kadamw.LAUNCHES["adamw"] = 0
+
+
+def step_launches():
+    """The attention and AdamW kernels' launch counts since
+    :func:`zero_launches`, as a train step's launches are held."""
+    return {**flash.LAUNCHES, **kadamw.LAUNCHES}
+
+
+def adamw_step_launches(params):
+    """The AdamW kernels' launches in one kernel ``adamw_update`` of
+    ``params`` with gradients in the parameters' dtypes and moments of
+    one dtype: per batch of leaves of one dtype (at most the library's
+    leaves a launch) two for the sums of squares and one for the update,
+    and one for the scalars."""
+    max_leaves = kadamw._limits(kadamw.LIBRARY.load())[0]
+    dtypes = [p.dtype for p in leaves(params)]
+    batches = sum(-(-dtypes.count(d) // max_leaves) for d in set(dtypes))
+    return 3 * batches + 1
 
 
 class StepRecorder:
@@ -1745,14 +1789,16 @@ def phase_train(dev, root, seed):
         losses.append(float(metrics["loss"]))   # synchronizes
         walls.append(time.perf_counter() - t)
         gnorms.append(float(metrics["grad_norm"]))
-    launches = {name: flash.LAUNCHES[name] for name in flash.LAUNCHES}
+    launches = step_launches()
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
-            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
+            "adamw": TRAIN_STEPS * adamw_step_launches(params)}
     if launches != want or paged.LAUNCHES["paged_attention"] or \
             not all(np.isfinite(losses)):
         raise AssertionError(f"train: launches {launches} (want {want}, "
-                             f"forward twice a layer under remat), paged "
+                             f"forward twice a layer under remat, the "
+                             f"AdamW kernels every step), paged "
                              f"{paged.LAUNCHES['paged_attention']}, losses "
                              f"{losses}")
     med = float(np.median(walls[1:]))
@@ -2497,7 +2543,7 @@ def timed_steps(tag, cfg, params, pipeline, dev, steps, opt_cfg,
         losses.append(float(metrics["loss"]))   # synchronizes
         walls.append(time.perf_counter() - t)
         auxes.append(float(metrics["aux_loss"]))
-    launches = {name: flash.LAUNCHES[name] for name in flash.LAUNCHES}
+    launches = step_launches()
     if not all(np.isfinite(losses)) or paged.LAUNCHES["paged_attention"]:
         raise AssertionError(f"{tag}: losses {losses}, paged "
                              f"{paged.LAUNCHES['paged_attention']}")
@@ -2576,7 +2622,8 @@ def phase_moe_train(dev, root, seed):
     losses, auxes, walls, launches, peak, _, _ = timed_steps(
         "moe-train", cfg, params, pipeline, dev, MOE_TRAIN_STEPS, opt_cfg)
     want = {"flash_attention_fwd": 2 * cfg.n_layers * MOE_TRAIN_STEPS,
-            "flash_attention_bwd": cfg.n_layers * MOE_TRAIN_STEPS}
+            "flash_attention_bwd": cfg.n_layers * MOE_TRAIN_STEPS,
+            "adamw": MOE_TRAIN_STEPS * adamw_step_launches(params)}
     if launches != want:
         raise AssertionError(f"moe-train: launches {launches} (want {want})")
     med = float(np.median(walls))
@@ -2678,8 +2725,11 @@ def phase_ssm(dev, root, seed):
     losses, _, walls, launches, peak, opt_state, step = timed_steps(
         "ssm", cfg, params, pipeline, dev, SSM_TRAIN_STEPS, opt_cfg,
         remat=False)
-    if any(launches.values()):
-        raise AssertionError(f"ssm: attention kernels launched {launches}")
+    want = {**{name: 0 for name in flash.LAUNCHES},
+            "adamw": SSM_TRAIN_STEPS * adamw_step_launches(params)}
+    if launches != want:
+        raise AssertionError(f"ssm: launches {launches} (want {want}: no "
+                             f"attention kernel)")
     med = float(np.median(walls))
     tokens = SSM_TRAIN_B * SSM_TRAIN_S
     log(f"ssm: {cfg.name} B={SSM_TRAIN_B} S={SSM_TRAIN_S}, bf16 params, "
@@ -2688,7 +2738,8 @@ def phase_ssm(dev, root, seed):
         f"{[round(w, 6) for w in walls]} s, median {med:.6f} s = "
         f"{tokens / med:.1f} tokens/s, MFU "
         f"{6 * n_params * tokens / med / BF16_FLOPS_PER_S:.6f} (6 N T); "
-        f"max_memory_allocated {peak} bytes [{label}]")
+        f"launches {launches}; max_memory_allocated {peak} bytes "
+        f"[{label}]")
 
     inner = model_ssm._slstm_recurrence
 
@@ -3044,7 +3095,8 @@ def phase_hubert(dev, seed):
     losses, _, walls, train_launches, peak, opt_state, step = timed_steps(
         "hubert-train", cfg, params, batches, dev, HUBERT_STEPS, opt_cfg)
     want = {"flash_attention_fwd": 2 * cfg.n_layers * HUBERT_STEPS,
-            "flash_attention_bwd": cfg.n_layers * HUBERT_STEPS}
+            "flash_attention_bwd": cfg.n_layers * HUBERT_STEPS,
+            "adamw": HUBERT_STEPS * adamw_step_launches(params)}
     if train_launches != want:
         raise AssertionError(f"hubert-train: launches {train_launches} "
                              f"(want {want})")
@@ -3184,6 +3236,15 @@ def phase_archs(dev, seed):
 
 # Launches in the host-cost stream, and its repeats.
 HOST_STREAM, HOST_REPEATS = 20_000, 5
+# The placed steps with the AdamW kernels against the same steps with the
+# plain update. The first step's loss comes before any update, so it is
+# equal, and its grad norm differs only in the order of the fp32 sums
+# (within ADAMW_NORM_REL). That difference of a few ulps in the clip
+# scale carries on into the later steps (the grad norms 2.9e-3 apart by
+# the fourth step on one H100), so the later steps are held to the plain
+# update with the kernels' norms replayed into it: its losses equal the
+# kernels' bit for bit, as the kernels round as the plain loop does.
+ADAMW_NORM_REL = 1e-6
 
 
 def launch_steps(dev, root, seed, mesh=None):
@@ -3192,8 +3253,10 @@ def launch_steps(dev, root, seed, mesh=None):
     the same optimizer and ``make_train_step(remat=True)``. With a
     ``mesh`` the parameters, moments and batches are placed by
     ``repro_torch.launch.train`` and the step runs under
-    ``implicit_replication``. Returns losses, grad norms, step walls and
-    the launches of the steps (counts set to 0 just before them)."""
+    ``implicit_replication``. Returns losses, grad norms, step walls, the
+    launches of the steps (counts set to 0 just before them), the kinds
+    of parameter and moment and the AdamW kernels' launches a kernel
+    update (:func:`adamw_step_launches`)."""
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.launch import train as launcher
     from repro_torch.sharding.partition import make_policy
@@ -3225,26 +3288,55 @@ def launch_steps(dev, root, seed, mesh=None):
         losses.append(launcher.scalar(metrics["loss"]))   # synchronizes
         walls.append(time.perf_counter() - t)
         gnorms.append(launcher.scalar(metrics["grad_norm"]))
-    launches = {name: flash.LAUNCHES[name] for name in flash.LAUNCHES}
+    launches = step_launches()
     kinds = (type(leaves(params)[0]).__name__,
              type(leaves(opt_state["m"])[0]).__name__)
+    per_update = adamw_step_launches(params)
     del params, opt_state, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return losses, gnorms, walls, launches, kinds
+    return losses, gnorms, walls, launches, kinds, per_update
+
+
+@contextlib.contextmanager
+def plain_optimizer(norms=None):
+    """The train step's AdamW update on its plain version, the rest of
+    the step (its attention kernels) as it is; with ``norms`` the i-th
+    update takes ``norms[i]`` as its global norm (another run's norms
+    replayed)."""
+    from repro_torch.train import optimizer as opt_module
+    from repro_torch.train import train_step as step_module
+    real, real_norm = step_module.adamw_update, opt_module.global_norm
+    step_module.adamw_update = lambda *args: real(*args[:6], impl="plain")
+    if norms is not None:
+        replay = iter(norms)
+        opt_module.global_norm = lambda tree: torch.tensor(
+            next(replay), dtype=torch.float32, device=leaves(tree)[0].device)
+    try:
+        yield
+    finally:
+        step_module.adamw_update = real
+        opt_module.global_norm = real_norm
+
+
+def rel_gap(got, want):
+    """Largest relative gap of two lists of numbers."""
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
 
 
 def phase_launch_train(dev, root, seed):
     """llama3.2-3b trained through the launcher's placement on the (1, 1)
-    NCCL mesh; held bit for bit to the unplaced steps. Returns the
-    launches and the median placed step."""
+    NCCL mesh; held bit for bit to the unplaced steps; the same placed
+    steps again with the plain AdamW update, the step before the AdamW
+    kernels, held to the kernels' steps as :data:`ADAMW_NORM_REL` says.
+    Returns the launches and the median placed step."""
     label = card_label()
     cfg = get_config(ARCH)
     if TRAIN_RUN:
         ref = dict(TRAIN_RUN, source="phase train")
     else:
-        losses, gnorms, walls, _, _ = launch_steps(dev, root / "unplaced",
-                                                   seed)
+        losses, gnorms, walls, *_ = launch_steps(dev, root / "unplaced",
+                                                 seed)
         ref = dict(losses=losses, grad_norms=gnorms,
                    median_s=float(np.median(walls[1:])),
                    source="unplaced steps run here")
@@ -3252,10 +3344,11 @@ def phase_launch_train(dev, root, seed):
     from repro_torch.launch.mesh import make_host_mesh
     mesh = make_host_mesh(device=dev)
     mesh_s = time.perf_counter() - t0
-    losses, gnorms, walls, launches, kinds = launch_steps(
+    losses, gnorms, walls, launches, kinds, per_update = launch_steps(
         dev, root / "placed", seed, mesh)
     want = {"flash_attention_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
-            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
+            "adamw": TRAIN_STEPS * per_update}
     if launches != want or paged.LAUNCHES["paged_attention"]:
         raise AssertionError(f"launch-train: launches {launches} (want "
                              f"{want}), paged "
@@ -3269,6 +3362,36 @@ def phase_launch_train(dev, root, seed):
             f"differ from the unplaced {ref['losses']} and "
             f"{ref['grad_norms']} ({ref['source']})")
     med = float(np.median(walls[1:]))
+    with plain_optimizer():
+        plain_losses, plain_gnorms, plain_walls, plain_launches, *_ = \
+            launch_steps(dev, root / "placed_plain", seed, mesh)
+    with plain_optimizer(norms=gnorms):
+        replay_losses, *_ = launch_steps(dev, root / "placed_replay", seed,
+                                         mesh)
+    plain_med = float(np.median(plain_walls[1:]))
+    plain_want = dict(want, adamw=0)
+    norm_gap = rel_gap(gnorms[:1], plain_gnorms[:1])
+    log(f"launch-train: the same placed steps with the plain AdamW update:"
+        f" losses {plain_losses}, grad norms {plain_gnorms}; launches "
+        f"{plain_launches}; first losses equal: "
+        f"{plain_losses[0] == losses[0]}, first grad norms {norm_gap:.3e} "
+        f"apart (bound {ADAMW_NORM_REL}); later steps apart by "
+        f"{rel_gap(losses, plain_losses):.3e} in the losses, "
+        f"{rel_gap(gnorms, plain_gnorms):.3e} in the grad norms; with the "
+        f"kernels' norms replayed: losses {replay_losses}, equal to the "
+        f"kernels' bit for bit: {replay_losses == losses}; step walls "
+        f"{[round(w, 6) for w in plain_walls]} s, median {plain_med:.6f} "
+        f"s; with the AdamW kernels {med:.6f} s ({med / plain_med:.4f} x) "
+        f"[{label}]")
+    if plain_launches != plain_want or plain_losses[0] != losses[0] or \
+            not norm_gap <= ADAMW_NORM_REL or replay_losses != losses:
+        raise AssertionError(
+            f"launch-train: the plain AdamW update's steps: launches "
+            f"{plain_launches} (want {plain_want}), losses {plain_losses} "
+            f"and grad norms {plain_gnorms} against the kernels' {losses} "
+            f"and {gnorms} (the first losses equal, the first norms within "
+            f"{ADAMW_NORM_REL}); with the kernels' norms replayed, losses "
+            f"{replay_losses} (equal)")
     log(f"launch-train: {ARCH} at full width and depth on a "
         f"{tuple(mesh.shape)} {dist.get_backend()} mesh "
         f"{mesh.mesh_dim_names} (made in {mesh_s:.3f} s), parameters and "
@@ -3369,6 +3492,227 @@ def phase_launch(dev, seed):
                               Path(tmp), seed)
     timed("launch-roofline", phase_launch_roofline, dev, med)
     return launches
+
+
+# ------------------------------------------------------------- adamw
+#
+# The AdamW kernels (kernels/adamw) on the two trees the port trains on the
+# card: the benchmark cell's deepseek-moe-16b (4 of 28 layers, 55 leaves:
+# bf16 weights, fp32 routers and norm scales) and llama3.2-3b at full
+# size (254 leaves).
+
+ADAMW_TREES = (("deepseek-moe-16b", 4), (ARCH, None))
+# The benchmark cell's schedule; the state is drawn as after some steps.
+ADAMW_OPT = dict(peak_lr=1e-3, warmup_steps=10, total_steps=1000)
+ADAMW_REPS = 10
+ADAMW_SRC = "src/repro_torch/kernels/adamw/adamw.cu"
+ADAMW_REPLACES = ("none: src/repro/train/optimizer.py:59 adamw_update is "
+                  "plain JAX, fused by XLA")
+
+
+def adamw_tree(arch, layers, dev, seed):
+    """(cfg, params, grads, AdamW state, decay mask) of ``arch`` cut to
+    ``layers``: parameters from ``seed``, gradients and moments drawn from
+    it (moments as after some steps: nonzero, v > 0)."""
+    cfg = cut_depth(get_config(arch), layers)
+    params = init_params(cfg, seed=seed, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+
+    def draw(t, scale):
+        return torch.randn(t.shape, generator=gen, device=dev,
+                           dtype=t.dtype).mul_(scale)
+
+    grads = tree_map(lambda p: draw(p, 1e-3), params)
+    state = adamw_init(params, OptimizerConfig(**ADAMW_OPT))
+    for m, v in zip(leaves(state["m"]), leaves(state["v"])):
+        m.copy_(draw(m, 1e-4))
+        v.copy_(draw(v, 1e-4).square_())
+    return cfg, params, grads, state, reference_decay_mask(params)
+
+
+def bits_digest(t):
+    """A checksum of ``t``'s bits, a 0-dim int64 on its device: each
+    element's bit pattern times (its index mod 65521) + 1, summed (with
+    wraparound) in chunks of 2^24 elements."""
+    flat = t.reshape(-1).view({torch.bfloat16: torch.int16,
+                               torch.float32: torch.int32}[t.dtype])
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for i0 in range(0, flat.numel(), 1 << 24):
+        part = flat[i0:i0 + (1 << 24)].to(torch.int64)
+        w = torch.arange(i0, i0 + part.numel(), device=t.device) % 65521 + 1
+        total += (part * w).sum()
+    return total
+
+
+def adamw_tree_check(params, grads, state, mask, opt_cfg):
+    """``adamw_update`` with the kernels over the whole tree, as the
+    train step calls it (every batch, leaf table and decay flag of that
+    call), against the plain version leaf by leaf from the same start,
+    and a second kernel run from that start equal bit for bit (per-leaf
+    :func:`bits_digest` of p, m and v). The start is kept on the host;
+    the tree is left at the kernels' update. Returns (largest gap of p,
+    m, v over the bound; largest relative gap of a leaf's sum of
+    squares)."""
+    ps, gs, ms, vs = (leaves(t) for t in (params, grads, state["m"],
+                                            state["v"]))
+    start = [[t.to("cpu", copy=True) for t in leaf]
+             for leaf in zip(ps, ms, vs)]
+    sums = kadamw.sum_squares(gs)
+    plain_sums = sum_squares(gs)
+    sum_gap = float(((sums - plain_sums).abs()
+                     / plain_sums.clamp(min=1e-30)).max())
+    count, lr, scale, bc1, bc2 = step_scalars(
+        opt_cfg, state["count"], torch.sqrt(torch.sum(plain_sums)))
+    digests = []
+    for run in range(2):
+        if run:
+            for leaf, host in zip(zip(ps, ms, vs), start):
+                for t, h in zip(leaf, host):
+                    t.copy_(h)
+        adamw_update(params, grads, dict(state), opt_cfg, mask,
+                     impl="kernel")
+        digests.append(torch.stack([torch.stack([bits_digest(t)
+                                                 for t in leaf])
+                                    for leaf in zip(ps, ms, vs)]).cpu())
+    differ = (digests[0] != digests[1]).any(dim=1).nonzero().flatten()
+    if len(differ):
+        raise AssertionError(f"adamw: two kernel runs over the tree "
+                             f"differ in the bits of leaves "
+                             f"{differ.tolist()}")
+    worst = 0.0
+    for i, dk in enumerate(leaves(mask)):
+        p, m, v = (h.to(ps[i].device) for h in start[i])
+        update_leaf(p, gs[i], m, v, dk, scale, lr, bc1, bc2, opt_cfg)
+        for got, want in zip((ps[i], ms[i], vs[i]), (p, m, v)):
+            worst = max(worst, close_ratio(got, want))
+        del p, m, v
+    return worst, sum_gap
+
+
+def close_ratio(got, want):
+    """max |got - want| over the card test's bound (one ulp of a bf16
+    value, 1e-6 of an fp32 one, at least 1e-6 of the largest |want|); at
+    most 1 passes, a NaN reads as infinite."""
+    g, w = got.float(), want.float()
+    floor = 1e-6 * float(w.abs().max())
+    if want.dtype == torch.bfloat16:
+        bound = torch.exp2(torch.floor(torch.log2(w.abs())) - 7)
+    else:
+        bound = 1e-6 * w.abs()
+    diff = (g - w).abs()
+    ratio = torch.where(diff == 0, torch.zeros_like(diff),
+                        diff / torch.clamp(bound, min=floor))
+    return float(torch.nan_to_num(ratio, nan=float("inf")).max())
+
+
+def fused_adamw_ms(ps, gs, ms, vs, opt_cfg):
+    """``torch._fused_adamw_``'s time over the same leaves (the yardstick
+    only: the port never calls it), one call per parameter dtype as
+    ``torch.optim`` groups them, without clipping. It takes moments only
+    in the parameters' dtype, so bf16 leaves run with bf16 copies of
+    theirs (14 bytes a parameter moved, not 24)."""
+    dev = ps[0].device
+    groups = {}
+    for i, p in enumerate(ps):
+        groups.setdefault(p.dtype, []).append(i)
+    ms = [m.to(p.dtype) for m, p in zip(ms, ps)]
+    vs = [v.to(p.dtype) for v, p in zip(vs, ps)]
+    steps = [torch.ones((), dtype=torch.float32, device=dev) for _ in ps]
+
+    def run():
+        for idx in groups.values():
+            torch._fused_adamw_(
+                [ps[i] for i in idx], [gs[i] for i in idx],
+                [ms[i] for i in idx], [vs[i] for i in idx], [],
+                [steps[i] for i in idx], lr=opt_cfg.peak_lr,
+                beta1=opt_cfg.b1, beta2=opt_cfg.b2,
+                weight_decay=opt_cfg.weight_decay, eps=opt_cfg.eps,
+                amsgrad=False, maximize=False)
+
+    return cuda_ms(run, ADAMW_REPS)
+
+
+def adamw_bytes(params, grads, state):
+    """Bytes the fused update must move: each gradient read twice (the
+    norm, the update), each parameter and moment read and written."""
+    return sum(2 * (t.numel() * t.element_size())
+               for tree in (params, grads, state["m"], state["v"])
+               for t in leaves(tree))
+
+
+def phase_adamw(dev, seed, train_launches=None):
+    """The AdamW kernels at each tree of :data:`ADAMW_TREES`: the whole
+    tree's kernel update against the plain version and twice bit for bit
+    (:func:`adamw_tree_check`), then ``adamw_update`` timed whole with
+    the kernels and with the plain version, the norm's kernels alone and
+    ``torch._fused_adamw_``; launches an update and the bound (the bytes
+    of :func:`adamw_bytes` at 3.35 TB/s). Returns the kernels JSON row:
+    the first tree's numbers (every tree's under ``shapes``), its
+    ``launches`` those of moe-train's timed steps (``train_launches``,
+    the main path's count; None where the moe group did not run)."""
+    label = card_label()
+    opt_cfg = OptimizerConfig(**ADAMW_OPT)
+    rows = {}
+    for arch, layers in ADAMW_TREES:
+        cfg, params, grads, state, mask = adamw_tree(arch, layers, dev,
+                                                     seed)
+        decay = leaves(mask)
+        n = sum(p.numel() for p in leaves(params))
+        worst, sum_gap = adamw_tree_check(params, grads, state, mask,
+                                          opt_cfg)
+        if worst > 1.0 or sum_gap > 1e-5:
+            raise AssertionError(f"adamw: {arch}: kernel against plain "
+                                 f"gap {worst} of the bound, sums of "
+                                 f"squares {sum_gap} relative")
+        held = dict(state)
+
+        def update(impl):
+            _, new, _ = adamw_update(params, grads, held, opt_cfg, mask,
+                                     impl=impl)
+            held["count"] = new["count"]
+
+        before = kadamw.LAUNCHES["adamw"]
+        update("kernel")
+        launches = kadamw.LAUNCHES["adamw"] - before
+        ms = cuda_ms(lambda: update("kernel"), ADAMW_REPS)
+        norm_ms = cuda_ms(lambda: kadamw.sum_squares(leaves(grads)),
+                          ADAMW_REPS)
+        plain_ms = cuda_ms(lambda: update("plain"), 3)
+        lib_ms = fused_adamw_ms(leaves(params), leaves(grads),
+                                leaves(held["m"]), leaves(held["v"]),
+                                opt_cfg)
+        nbytes = adamw_bytes(params, grads, state)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[f"{arch} {cfg.n_layers} layers"] = dict(
+            leaves=len(decay), params=n, update_launches=launches, ms=ms,
+            norm_ms=norm_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound_ms, bound_by="bytes",
+            bytes=nbytes, max_gap=worst, sum_gap=sum_gap)
+        log(f"adamw: {arch} at {cfg.n_layers} layers, {len(decay)} leaves, "
+            f"{n} parameters: the whole tree's kernel update within "
+            f"{worst:.4f} of its bound of the plain version in every leaf "
+            f"and equal bit for bit on a second run, sums of squares within"
+            f" {sum_gap:.3e}; adamw_update "
+            f"{ms:.4f} ms ({launches} launches; the norm's {norm_ms:.4f} "
+            f"ms), plain {plain_ms:.4f} ms, torch._fused_adamw_ "
+            f"{lib_ms:.4f} ms (moments in the parameters' dtype, no "
+            f"clipping); "
+            f"bound {bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, "
+            f"{nbytes / n:.2f} a parameter): {bound_ms / ms * 100:.2f} % "
+            f"of it [{label}]")
+        del params, grads, state, held, mask
+        gc.collect()
+        torch.cuda.empty_cache()
+    first = next(iter(rows.values()))
+    return {"name": "adamw", "route": "cuda", "source": ADAMW_SRC,
+            "replaces": ADAMW_REPLACES, "launches": train_launches,
+            "max_abs_err": None, "max_gap": max(r["max_gap"]
+                                                for r in rows.values()),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": "bytes",
+            "library_ms": first["library_ms"], "shapes": rows,
+            "earlier": "PERF.md §6"}
 
 
 # ------------------------------------------------------------- gates
@@ -3634,9 +3978,10 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     dev = torch.device("cuda", 0)
 
-    # All four sources start building at once; the join group needs only
-    # simjoin.cu, so the attention sources build while it runs.
-    attention_libs = (flash.LIBRARY, flash.LIBRARY_BWD, paged.LIBRARY)
+    # All five sources start building at once; the join group needs only
+    # simjoin.cu, so the attention and AdamW sources build while it runs.
+    attention_libs = (flash.LIBRARY, flash.LIBRARY_BWD, paged.LIBRARY,
+                      kadamw.LIBRARY)
     background = BackgroundBuild(attention_libs)
     record = []
     rows = []
@@ -3644,7 +3989,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         build_all((simjoin.LIBRARY,))
         log(f"build: simjoin.cu ready in {time.perf_counter() - t0:.2f} s; "
-            f"the {len(attention_libs)} attention sources go on building "
+            f"the {len(attention_libs)} other sources go on building "
             f"(one nvcc each, in parallel) while the join group runs")
         log_build((simjoin.LIBRARY,))
         if "join" in groups:
@@ -3663,7 +4008,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         background.thread.join()     # no nvcc outlives a failed group
     background.wait()
-    log(f"build: the attention sources built in {background.seconds:.2f} s "
+    log(f"build: the other sources built in {background.seconds:.2f} s "
         f"from the start (waited {time.perf_counter() - t0:.2f} s for them "
         f"after the join group)")
     log_build(attention_libs)
@@ -3692,13 +4037,16 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": None,
             "earlier": "PERF.md §6"})
 
+    # The training and later phases' launches ({phase: {kernel:
+    # launches}}) and the kernels' replays at model shapes ({kernel:
+    # {shape: row}}).
+    phase_launches, shapes = {}, {}
     if "attn" in groups:
         record += timed("group attn", attention_rows, dev)
     if "train" in groups:
-        record += timed("group train", train_rows, dev, args.seed)
-    # The later phases' launches ({phase: {kernel: launches}}) and the
-    # kernels' replays at model shapes ({kernel: {shape: row}}).
-    phase_launches, shapes = {}, {}
+        train_record, phase_launches["train"] = timed(
+            "group train", train_rows, dev, args.seed)
+        record += train_record
 
     def file_replays(replays):
         for shape, parts in replays:
@@ -3727,6 +4075,10 @@ def main(argv=None) -> int:
     if "archs" in groups:
         phase_launches.update(timed("group archs", phase_archs, dev,
                                     args.seed))
+    if "adamw" in groups:
+        moe_launches = phase_launches.get("moe-train", {})
+        record.append(timed("group adamw", phase_adamw, dev, args.seed,
+                            moe_launches.get("adamw")))
     if "launch" in groups:
         phase_launches["launch-train"] = timed("group launch", phase_launch,
                                                dev, args.seed)
@@ -3797,7 +4149,8 @@ def attention_rows(dev):
 
 def train_rows(dev, seed):
     """The training slice's phases (backward kernels, train, backward
-    replay, resume); returns the backward's kernels JSON row."""
+    replay, resume); returns the backward's kernels JSON row and the
+    train phase's launches."""
     bwd_err = phase_train_kernels(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         root = Path(tmp)
@@ -3813,7 +4166,7 @@ def train_rows(dev, seed):
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
         "train_fwd_launches": train_launches["flash_attention_fwd"],
-        "earlier": "PERF.md §6"}]
+        "earlier": "PERF.md §6"}], train_launches
 
 
 if __name__ == "__main__":

@@ -6,5 +6,7 @@ module that builds, binds and launches it (``<name>.py``), an ``ops.py``
 of entry points mirroring the reference's, and a pure-torch oracle
 (``ref.py``). ``simjoin`` carries both the dense grid and the
 block-sparse (eps-pruned, pair-list) variant the join executors
-dispatch.
+dispatch. ``adamw`` (no Pallas counterpart: the optimizer's update, fused
+by hand) has no ``ops.py``: ``repro_torch.train.optimizer`` calls its
+wrapper's ops, and takes its ``ref.py`` as the plain update.
 """

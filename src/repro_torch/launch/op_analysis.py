@@ -187,12 +187,34 @@ def _paged_cost(args, out) -> Tuple[float, float]:
             + sum(nbytes(t) for t in out))
 
 
+def _adamw_sum_squares_cost(args, out) -> Tuple[float, float]:
+    """AdamW's norm pass: a multiply-add an element; each gradient read
+    once."""
+    grads = args[0]
+    return (2.0 * sum(g.numel() for g in grads),
+            sum(nbytes(g) for g in grads) + sum(nbytes(t) for t in out))
+
+
+def _adamw_apply_cost(args, out) -> Tuple[float, float]:
+    """AdamW's update pass: 15 flops an element (17 where it decays);
+    parameters and moments read and written once, gradients read once."""
+    params, grads, m, v, sumsq, count, decay = args[:7]
+    flops = sum((17.0 if dk else 15.0) * p.numel()
+                for p, dk in zip(params, decay))
+    moved = sum(2 * nbytes(p) + nbytes(g) + 2 * nbytes(a) + 2 * nbytes(b)
+                for p, g, a, b in zip(params, grads, m, v))
+    return flops, moved + nbytes(sumsq) + nbytes(count) + sum(
+        nbytes(t) for t in out)
+
+
 #: Cost functions of the hand-written kernels' ops, by op name: (args,
 #: outputs) -> (flops, bytes).
 KERNELS: Dict[str, Callable[..., Tuple[float, float]]] = {
     "flash_attention_fwd": _flash_fwd_cost,
     "flash_attention_bwd": _flash_bwd_cost,
     "paged_attention": _paged_cost,
+    "adamw_sum_squares": _adamw_sum_squares_cost,
+    "adamw_apply": _adamw_apply_cost,
 }
 
 

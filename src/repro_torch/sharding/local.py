@@ -199,6 +199,55 @@ def as_dtensor(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
                                      run_check=False)
 
 
+def moved_dims(t: torch.Tensor, ref: torch.Tensor) -> List[int]:
+    """The mesh dims of more than one rank on which ``DTensor`` ``t``'s
+    placement differs from ``ref``'s. On a dim of one rank every placement
+    holds the same local tensor (a pending sum over one rank is the sum),
+    so only these dims move data when ``t`` is placed like ``ref``."""
+    mesh = ref.device_mesh
+    return [d for d, (a, b) in enumerate(zip(t.placements, ref.placements))
+            if a != b and mesh.size(d) > 1]
+
+
+def to_local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local shard (its storage: an in-place write to it
+    writes the ``DTensor``); anything else as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def sum_over_shards(sums: torch.Tensor, refs: Sequence[torch.Tensor]
+                    ) -> torch.Tensor:
+    """``sums[i]``, a sum over the local shard of ``refs[i]``, turned into
+    sums over whole leaves: the leaves that mesh dims of more than one
+    rank shard are summed in groups (those sharded over the same dims,
+    first seen first) and each group all-reduced over its dims, as
+    DTensor's ``torch.sum`` reduces a sharded leaf. Returns a vector
+    whose total is the whole tree's sum: ``sums`` itself where nothing
+    is sharded over more than one rank (plain tensors, a one-rank mesh),
+    else one entry a group."""
+    groups: dict = {}
+    for i, t in enumerate(refs):
+        dims: tuple = ()
+        if is_dtensor(t):
+            dims = tuple(d for d, p in enumerate(t.placements)
+                         if p.is_shard() and t.device_mesh.size(d) > 1)
+        groups.setdefault(dims, []).append(i)
+    if not any(groups):
+        return sums
+    dt = _api()
+    out = []
+    for dims, idx in groups.items():
+        s = torch.stack([sums[i] for i in idx]).sum()
+        if dims:
+            mesh = refs[idx[0]].device_mesh
+            s = dt.DTensor.from_local(
+                s, mesh, [dt.Partial() if d in dims else dt.Replicate()
+                          for d in range(mesh.ndim)],
+                run_check=False).full_tensor()
+        out.append(s)
+    return torch.stack(out)
+
+
 def on_local_shards(fn, ref: torch.Tensor, in_placements, out_placements):
     """``fn`` run on each rank's local shards of its ``DTensor``
     arguments, redistributed to ``in_placements`` first; its outputs

@@ -117,10 +117,10 @@ def make_train_step(cfg: ModelConfig,
                     attention_impl: str = "auto",
                     remat: bool = True, impl: str = "kernel",
                     telemetry: Telemetry = NULL_TELEMETRY) -> Callable:
-    """A train step for ``cfg``: gradients of :func:`loss_fn` (``impl``
-    picks the attention kernels or their plain versions), then one AdamW
-    update in place, decaying what the reference decays
-    (:func:`reference_decay_mask`); each call is ``telemetry``'s
+    """A train step for ``cfg``: gradients of :func:`loss_fn`, then one
+    AdamW update in place, decaying what the reference decays
+    (:func:`reference_decay_mask`); ``impl`` picks the attention and
+    AdamW kernels or their plain versions. Each call is ``telemetry``'s
     ``train.step`` span."""
     opt_cfg = opt_cfg or OptimizerConfig()
     lfn = functools.partial(loss_fn, cfg=cfg, attention_impl=attention_impl,
@@ -134,7 +134,7 @@ def make_train_step(cfg: ModelConfig,
             grads = tree_map(lambda _: next(it), params)
             params, opt_state, opt_metrics = adamw_update(
                 params, grads, opt_state, opt_cfg,
-                reference_decay_mask(params), telemetry)
+                reference_decay_mask(params), telemetry, impl)
             metrics.update(opt_metrics)
             return params, opt_state, metrics
 

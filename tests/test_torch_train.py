@@ -94,13 +94,30 @@ OPT_CASES = {
     "clip": dict(dtype="float32", kw=dict(clip_norm=1e-6), gscale=100.0),
     "decay": dict(dtype="float32", kw=dict(weight_decay=0.3, peak_lr=1e-2,
                                            warmup_steps=0)),
+    # The other (param, grad, moment) dtype triples the CUDA kernel takes:
+    # microbatched steps' fp32 gradients, bf16 gradients of fp32
+    # parameters, bf16 state of bf16 parameters.
+    "bf16_f32_grads": dict(dtype="bfloat16", gdtype="float32",
+                           kw=dict(warmup_steps=2)),
+    "f32_bf16_grads": dict(dtype="float32", gdtype="bfloat16",
+                           kw=dict(warmup_steps=2)),
+    "bf16_bf16_state": dict(dtype="bfloat16",
+                            kw=dict(warmup_steps=2, state_dtype="bfloat16")),
+    # Every leaf decayed by ``decay_mask``, the 1-D scale too.
+    "mask_all": dict(dtype="float32", mask=True,
+                     kw=dict(weight_decay=0.2, warmup_steps=1)),
+    "bf16_mask_all": dict(dtype="bfloat16", mask=True,
+                          kw=dict(weight_decay=0.2, warmup_steps=1)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(OPT_CASES))
 def test_adamw_update_matches(case):
     """Three AdamW updates from the same params, grads and state: a 2-D
-    weight (decayed), a 1-D scale (not decayed) and a 3-D stack."""
+    weight (decayed), a 1-D scale (not decayed) and a 3-D stack.
+    ``gdtype`` gives the gradients a dtype of their own; ``mask`` decays
+    every leaf by ``decay_mask`` (the reference decays by ndim, so its
+    leaves get a leading axis of 1 there)."""
     spec = OPT_CASES[case]
     jcfg, tcfg = opt_pair(**spec["kw"])
     rng = np.random.default_rng(7)
@@ -112,37 +129,117 @@ def test_adamw_update_matches(case):
              for _ in range(3)]
     jd = getattr(jnp, spec["dtype"])
     td = getattr(torch, spec["dtype"])
-    jp = {k: jnp.asarray(v).astype(jd) for k, v in p0.items()}
+    gd = spec.get("gdtype", spec["dtype"])
+    lead = (lambda a: a[None]) if spec.get("mask") else (lambda a: a)
+    mask = {k: True for k in shapes} if spec.get("mask") else None
+    jp = {k: lead(jnp.asarray(v).astype(jd)) for k, v in p0.items()}
     tp = {k: torch.from_numpy(v).to(td) for k, v in p0.items()}
     js, ts = jopt.adamw_init(jp, jcfg), topt.adamw_init(tp, tcfg)
     for g in grads:
         jp, js, jm = jopt.adamw_update(
-            jp, {k: jnp.asarray(v).astype(jd) for k, v in g.items()}, js,
-            jcfg)
+            jp, {k: lead(jnp.asarray(v).astype(getattr(jnp, gd)))
+                 for k, v in g.items()}, js, jcfg)
         tp, ts, tm = topt.adamw_update(
-            tp, {k: torch.from_numpy(v).to(td) for k, v in g.items()}, ts,
-            tcfg)
+            tp, {k: torch.from_numpy(v).to(getattr(torch, gd))
+                 for k, v in g.items()}, ts, tcfg, decay_mask=mask)
     assert int(ts["count"]) == int(js["count"]) == 3
     assert ts["count"].dtype == torch.int32
     for key in ("lr", "grad_norm"):
         assert float(tm[key]) == pytest.approx(float(jm[key]), rel=1e-6)
-    for k in shapes:
+    for k, s in shapes.items():
         assert tp[k].dtype == td
+        want = f32(jp[k]).reshape(s)
         if spec["dtype"] == "bfloat16":
             # 1 ulp of bf16 (8 significant bits) at each value.
-            want = f32(jp[k])
             ulp = np.exp2(np.floor(np.log2(np.abs(want))) - 7)
             assert np.all(np.abs(f32(tp[k]) - want) <= ulp * 1.0001)
         else:
-            np.testing.assert_allclose(f32(tp[k]), f32(jp[k]), rtol=1e-6,
+            np.testing.assert_allclose(f32(tp[k]), want, rtol=1e-6,
                                        atol=1e-7)
         sd = spec["kw"].get("state_dtype")
         for mom in ("m", "v"):
             assert ts[mom][k].dtype == (getattr(torch, sd) if sd
                                         else torch.float32)
             tol = 1e-2 if sd else 1e-6   # bf16 moments: 1 ulp
-            np.testing.assert_allclose(f32(ts[mom][k]), f32(js[mom][k]),
+            np.testing.assert_allclose(f32(ts[mom][k]),
+                                       f32(js[mom][k]).reshape(s),
                                        rtol=tol, atol=1e-7)
+
+
+# (param dtype, grad dtype, moment dtype or None for fp32): the cell's
+# bf16 / bf16 / fp32, microbatched steps' fp32 gradients, bf16 state, and
+# fp32 parameters under either moment dtype.
+KERNEL_TRIPLES = {
+    "f32": ("float32", "float32", None),
+    "bf16": ("bfloat16", "bfloat16", None),
+    "bf16_f32_grads": ("bfloat16", "float32", None),
+    "bf16_bf16_state": ("bfloat16", "bfloat16", "bfloat16"),
+    "f32_bf16_state": ("float32", "float32", "bfloat16"),
+}
+
+
+def ops_update(tp, tg, ts, tcfg, mask):
+    """One update through the kernel's two custom ops called by the
+    dispatcher (their CPU kernels, the plain version of
+    ``kernels/adamw/ref.py``), in place; returns the metrics."""
+    from repro_torch.kernels.adamw.adamw import HYPER_FIELDS
+    flat = [leaves(t) for t in (tp, tg, ts["m"], ts["v"])]
+    decay = leaves(mask) if mask else [p.ndim >= 2 for p in flat[0]]
+    sums = torch.ops.repro_torch.adamw_sum_squares(flat[1])
+    count, lr, gnorm = torch.ops.repro_torch.adamw_apply(
+        *flat, sums, ts["count"], decay,
+        [float(getattr(tcfg, f)) for f in HYPER_FIELDS])
+    ts["count"] = count
+    return {"lr": lr, "grad_norm": gnorm}
+
+
+@pytest.mark.parametrize("mask", ["ndim", "all"])
+@pytest.mark.parametrize("triple", sorted(KERNEL_TRIPLES))
+def test_adamw_ops_match(triple, mask):
+    """The kernel's custom ops against the reference over every dtype
+    triple the CUDA kernel takes, three updates (the second clipped).
+    ``mask="all"`` decays every leaf by ``decay_mask``; the reference
+    decays by ndim, so its leaves get a leading axis of 1 there."""
+    pd, gd, sd = KERNEL_TRIPLES[triple]
+    jcfg, tcfg = opt_pair(warmup_steps=1, weight_decay=0.2,
+                          state_dtype=sd)
+    rng = np.random.default_rng(11)
+    shapes = {"w": (6, 5), "scale": (5,), "stack": (2, 3, 4)}
+    p0 = {k: rng.standard_normal(s).astype(np.float32)
+          for k, s in shapes.items()}
+    grads = [{k: (rng.standard_normal(s) * gs).astype(np.float32)
+              for k, s in shapes.items()} for gs in (1.0, 50.0, 0.1)]
+    lead = (lambda a: a[None]) if mask == "all" else (lambda a: a)
+    jp = {k: lead(jnp.asarray(v).astype(getattr(jnp, pd)))
+          for k, v in p0.items()}
+    tp = {k: torch.from_numpy(v).to(getattr(torch, pd))
+          for k, v in p0.items()}
+    tmask = {k: True for k in shapes} if mask == "all" else None
+    js, ts = jopt.adamw_init(jp, jcfg), topt.adamw_init(tp, tcfg)
+    for g in grads:
+        jp, js, jm = jopt.adamw_update(
+            jp, {k: lead(jnp.asarray(v).astype(getattr(jnp, gd)))
+                 for k, v in g.items()}, js, jcfg)
+        tm = ops_update(tp, {k: torch.from_numpy(v).to(getattr(torch, gd))
+                             for k, v in g.items()}, ts, tcfg, tmask)
+    assert int(ts["count"]) == 3 and ts["count"].dtype == torch.int32
+    for key in ("lr", "grad_norm"):
+        assert float(tm[key]) == pytest.approx(float(jm[key]), rel=1e-6)
+    for k, s in shapes.items():
+        want = f32(jp[k]).reshape(s)
+        assert tp[k].dtype == getattr(torch, pd)
+        if pd == "bfloat16":
+            ulp = np.exp2(np.floor(np.log2(np.abs(want))) - 7)
+            assert np.all(np.abs(f32(tp[k]) - want) <= ulp * 1.0001)
+        else:
+            np.testing.assert_allclose(f32(tp[k]), want, rtol=1e-6,
+                                       atol=1e-7)
+        for mom in ("m", "v"):
+            assert ts[mom][k].dtype == (getattr(torch, sd) if sd
+                                        else torch.float32)
+            np.testing.assert_allclose(
+                f32(ts[mom][k]), f32(js[mom][k]).reshape(s),
+                rtol=1e-2 if sd else 1e-6, atol=1e-7)
 
 
 def test_adamw_moves_params_and_clips():
