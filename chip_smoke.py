@@ -235,11 +235,22 @@ CUDA toolkit; exits non-zero without them. Phases, each fatal on failure:
                the flash forward and backward and the paged kernel at
                head dim 16 timed as in 21 and 22 (reduced heads 4 / 4,
                B 2 x S 4096; the launcher's batched decode call).
+ 28. mla     — latent attention's bf16 flash kernels at each (q/k,
+               value) head-dim pair (192, 128): forward and backward
+               against their plain versions on phase 7's and phase 11's
+               bf16 edge cases, then at moonlight-16b-a3b's call in its
+               cell (B 2 x S 8192, 16 / 16 heads, causal; backward bits
+               equal run to run), timed with CUDA events beside the plain
+               versions and the operations bound; then one training step
+               of moonlight-16b-a3b as the cell cuts it (8 of 64 experts
+               held, vocab 20,480; every width, 27 layers) at that batch
+               from the raw-array pipeline, its flash launches held to 2
+               a layer forward (remat) and 1 backward.
 
 ``--phases`` runs some groups of these (join: 2-6, attn: 7-10, train:
 11-14, moe: 15-18, ssm: 19, jamba: 20, hubert: 21, nemotron: 22, archs:
-23, adamw: 24, launch: 25-26, gates: 27; the build and device lines
-always); the default is all of them.
+23, adamw: 24, launch: 25-26, gates: 27, mla: 28; the build and device
+lines always); the default is all of them.
 
 Every training phase (12, 18, 19, 21, 25) counts the AdamW kernels'
 launches beside the attention kernels' and holds them to the launches
@@ -321,7 +332,7 @@ from repro_torch.train.tree import leaves, named_leaves, tree_map  # noqa: E402
 
 # The phases in groups, in the order they run; ``--phases`` picks some.
 PHASE_GROUPS = ("join", "attn", "train", "moe", "ssm", "jamba", "hubert",
-                "nemotron", "archs", "adamw", "launch", "gates")
+                "nemotron", "archs", "adamw", "launch", "gates", "mla")
 N_NODES = 8
 KERNEL_SRC = "src/repro_torch/kernels/simjoin/simjoin.cu"
 SOURCES = {
@@ -1112,6 +1123,28 @@ def randn(rng, shape, dtype, dev):
     return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
         dev, dtype)
 
+
+# The bf16 forward kernels' edge cases (B, Sq, Sk, H, Hk, causal,
+# q_offset), at every head dim and (q/k, value) pair: causal GQA, ragged
+# Sk without a mask past the diagonal, q_offset.
+FWD_EDGES = ((2, 256, 256, 8, 2, True, 0), (1, 130, 200, 3, 1, False, 0),
+             (1, 64, 256, 2, 2, True, 192))
+
+
+def fwd_case(rng, dev, b, sq, sk, h, hk, d, causal, q_offset, dv=None):
+    """The bf16 forward kernel at q/k head dim ``d`` and value head dim
+    ``dv`` (``d`` by default), heads-first, against ``attention_ref``;
+    returns the max abs error."""
+    dv = d if dv is None else dv
+    qt, kt, vt = (randn(rng, (b, n, hh, w), torch.bfloat16, dev)
+                  .transpose(1, 2).contiguous()
+                  for n, hh, w in ((sq, h, d), (sk, hk, d), (sk, hk, dv)))
+    got = flash.flash_attention_fwd(qt, kt, vt, causal=causal, bq=1, bk=1,
+                                    q_offset=q_offset)
+    want = attention_ref(qt, kt, vt, causal=causal, q_offset=q_offset)
+    return close(got, want, 2e-2, 2e-2, f"flash bf16 D{d} DV{dv} Sq{sq} "
+                 f"Sk{sk} H{h}/{hk} causal={causal} q_offset={q_offset}")
+
 def phase_attention_kernels(dev):
     """Both attention kernels against their plain versions on the sweeps
     of the reference's kernel tests and at the slice's shapes."""
@@ -1154,20 +1187,11 @@ def phase_attention_kernels(dev):
         e = close(got, want, tols[dtype], tols[dtype], "flash q_offset=192")
         err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
         cases += 2
-    # The bf16 (wgmma) kernel at every head dim: causal GQA, ragged Sk
-    # without a mask past the diagonal, q_offset.
+    # The bf16 (wgmma) kernel at every head dim on FWD_EDGES (the
+    # (q/k, value) pairs: phase 28).
     for d in flash.HEAD_DIMS:
-        for b, sq, sk, h, hk, causal, off in (
-                (2, 256, 256, 8, 2, True, 0), (1, 130, 200, 3, 1, False, 0),
-                (1, 64, 256, 2, 2, True, 192)):
-            qt, kt, vt = (randn(rng, (b, n, hh, d), torch.bfloat16, dev)
-                          .transpose(1, 2).contiguous()
-                          for n, hh in ((sq, h), (sk, hk), (sk, hk)))
-            got = flash.flash_attention_fwd(qt, kt, vt, causal=causal, bq=1,
-                                            bk=1, q_offset=off)
-            want = attention_ref(qt, kt, vt, causal=causal, q_offset=off)
-            e = close(got, want, 2e-2, 2e-2, f"flash bf16 D{d} Sq{sq} Sk{sk}"
-                      f" causal={causal} q_offset={off}")
+        for b, sq, sk, h, hk, causal, off in FWD_EDGES:
+            e = fwd_case(rng, dev, b, sq, sk, h, hk, d, causal, off)
             err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
             cases += 1
     # The fp32 (CUDA-core) kernel at head dim 16, every reduced config's:
@@ -1583,16 +1607,35 @@ def grad_close(got, want, tol, what):
     return worst
 
 
-def bwd_case(rng, dev, b, sq, sk, h, hk, d, dtype, causal, q_offset=0):
+# The backward kernels' edge cases (B, Sq, Sk, H, Hk, causal, q_offset),
+# at every head dim and (q/k, value) pair.
+BWD_EDGES = (
+    (2, 256, 256, 4, 4, True, 0),      # rep 1
+    (1, 320, 320, 6, 2, True, 0),      # rep 3
+    (1, 200, 136, 3, 1, False, 0),     # ragged, non-causal
+    (1, 64, 256, 2, 2, True, 192),     # q_offset
+    # Partial key and query tiles on the diagonal.
+    (1, 200, 200, 2, 2, True, 0),
+    # Several query stages and head switches in one ring.
+    (1, 384, 384, 6, 2, True, 0),
+    # A key tile that straddles the offset.
+    (1, 64, 320, 2, 1, True, 192))
+
+
+def bwd_case(rng, dev, b, sq, sk, h, hk, d, dtype, causal, q_offset=0,
+             dv=None):
     """One ``flash_attention_bwd`` call against ``attention_bwd_ref`` on
-    the same forward (out, lse), heads-first; checks the forward's lse
+    the same forward (out, lse), heads-first, at q/k head dim ``d`` and
+    value head dim ``dv`` (``d`` by default); checks the forward's lse
     against the plain one and the backward's bits against a second
-    launch. Returns the max abs error and the inputs."""
+    launch. Returns the max abs error and the inputs (q, k, v, out, lse,
+    dout)."""
+    dv = d if dv is None else dv
     q = randn(rng, (b, h, sq, d), dtype, dev)
     k = randn(rng, (b, hk, sk, d), dtype, dev)
-    v = randn(rng, (b, hk, sk, d), dtype, dev)
-    dout = randn(rng, (b, h, sq, d), dtype, dev)
-    what = (f"flash bwd B{b} Sq{sq} Sk{sk} H{h}/{hk} D{d} {dtype} "
+    v = randn(rng, (b, hk, sk, dv), dtype, dev)
+    dout = randn(rng, (b, h, sq, dv), dtype, dev)
+    what = (f"flash bwd B{b} Sq{sq} Sk{sk} H{h}/{hk} D{d} DV{dv} {dtype} "
             f"causal={causal} q_offset={q_offset}")
     out, lse = flash.flash_attention_fwd(q, k, v, causal=causal, bq=1, bk=1,
                                          q_offset=q_offset, return_lse=True)
@@ -1626,17 +1669,7 @@ def phase_train_kernels(dev):
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for d in flash.HEAD_DIMS:
-            for b, sq, sk, h, hk, causal, off in (
-                    (2, 256, 256, 4, 4, True, 0),      # rep 1
-                    (1, 320, 320, 6, 2, True, 0),      # rep 3
-                    (1, 200, 136, 3, 1, False, 0),     # ragged, non-causal
-                    (1, 64, 256, 2, 2, True, 192),     # q_offset
-                    # Partial key and query tiles on the diagonal.
-                    (1, 200, 200, 2, 2, True, 0),
-                    # Several query stages and head switches in one ring.
-                    (1, 384, 384, 6, 2, True, 0),
-                    # A key tile that straddles the offset.
-                    (1, 64, 320, 2, 1, True, 192)):
+            for b, sq, sk, h, hk, causal, off in BWD_EDGES:
                 e, _ = bwd_case(rng, dev, b, sq, sk, h, hk, d, dtype, causal,
                                 off)
                 err = max(err, e)
@@ -3950,6 +3983,125 @@ def log_build(libraries):
                 log(f"build: {line.strip()}")
 
 
+# ---------------------------------------------------------------- mla --
+
+# Latent attention: moonlight-16b-a3b as its benchmark cell runs it
+# (portbench's moonlight-16b-a3b.train): B x S a step, the experts this
+# chip holds and its rows of the vocabulary.
+MLA_ARCH = "moonlight-16b-a3b"
+MLA_B, MLA_S = 2, 8192
+MLA_HELD, MLA_VOCAB = 8, 20480
+
+
+def phase_mla(dev, root, seed):
+    """The bf16 flash kernels at each (q/k, value) head-dim pair of
+    ``flash.HEAD_DIM_PAIRS`` against their plain versions: the forward
+    on FWD_EDGES and the backward on BWD_EDGES, then both at
+    moonlight-16b-a3b's call in its cell (B 2 x S 8192, 16 / 16 heads,
+    causal), timed with CUDA events beside the plain versions; then one
+    training step of the model as the cell cuts it (8 of 64 experts
+    held, vocab 20,480; every width and all 27 layers) on a batch of
+    that shape from the raw-array pipeline, whose flash launches are
+    held to 2 a layer forward (remat) and 1 backward. Returns the step's launches
+    and the cell call's replay rows (``REPLAY_KERNEL`` parts)."""
+    rng = np.random.default_rng(16)
+    err = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
+    cases = 0
+    for d, dv in flash.HEAD_DIM_PAIRS:
+        for b, sq, sk, h, hk, causal, off in FWD_EDGES:
+            e = fwd_case(rng, dev, b, sq, sk, h, hk, d, causal, off, dv)
+            err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e)
+            cases += 1
+        for b, sq, sk, h, hk, causal, off in BWD_EDGES:
+            e, _ = bwd_case(rng, dev, b, sq, sk, h, hk, d, torch.bfloat16,
+                            causal, off, dv)
+            err["flash_attention_bwd"] = max(err["flash_attention_bwd"], e)
+            cases += 1
+    log(f"mla: {cases} edge cases at (q/k, value) head dims "
+        f"{flash.HEAD_DIM_PAIRS} (bf16): kernel == plain within 2e-2 "
+        f"(forward) / {BWD_TOL[torch.bfloat16]} x max |g| (backward), "
+        f"forward lse == plain, backward bits equal run to run, "
+        f"max_abs_err {err}")
+
+    # The cell's cut of the model: one chip's 8 of the 64 experts and its
+    # eighth of the vocabulary.
+    cfg = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(cfg, vocab_size=MLA_VOCAB,
+                              moe=dataclasses.replace(cfg.moe,
+                                                      n_held=MLA_HELD))
+    d, dv = cfg.attention_dims
+    h, b, s = cfg.n_heads, MLA_B, MLA_S
+    shape = f"{MLA_ARCH}: B {b} x S {s} x {h} / {h} x D {d}, DV {dv}, causal"
+    e_bwd, (q, k, v, out, lse, dout) = bwd_case(
+        rng, dev, b, s, s, h, h, d, torch.bfloat16, True, 0, dv)
+    want = attention_ref(q, k, v, causal=True)
+    e_fwd = close(out, want, 2e-2, 2e-2, f"flash fwd {shape}")
+    del want
+    err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e_fwd)
+    err["flash_attention_bwd"] = max(err["flash_attention_bwd"], e_bwd)
+    torch.cuda.empty_cache()
+    live_pairs = b * h * s * (s + 1) // 2
+    rows = {}
+    for part, flops, kernel, plain in (
+            ("fwd", 2 * (d + dv) * live_pairs,
+             lambda: flash.flash_attention_fwd(q, k, v, causal=True, bq=1,
+                                               bk=1, return_lse=True),
+             lambda: attention_ref(q, k, v, causal=True, return_lse=True)),
+            ("bwd", 4 * (d + dv) * live_pairs,
+             lambda: flash.flash_attention_bwd(q, k, v, out, lse, dout,
+                                               causal=True),
+             lambda: attention_bwd_ref(q, k, v, out, lse, dout,
+                                       causal=True))):
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, reps=2)
+        torch.cuda.empty_cache()
+        bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+        name = REPLAY_KERNEL[part]
+        rows[part] = {"max_abs_err": err[name], "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": "operations",
+                      "roofline": 100 * bound_ms / ms}
+        log(f"mla: {name} at {shape}: {ms:.4f} ms (CUDA events, 10 back to "
+            f"back), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+            f"(operations: {flops // live_pairs // (d + dv)} (D + DV) a live "
+            f"pair at {BF16_FLOPS_PER_S:.3e}), {100 * bound_ms / ms:.2f} % "
+            f"of it; {card_label()}")
+    del q, k, v, out, lse, dout
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pipeline = train_pipeline(root, cfg.vocab_size, seed, batch=b, seq=s)
+    params = init_params(cfg, seed=seed, device=dev)
+    opt_cfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=10,
+                              total_steps=1000)
+    opt_state = adamw_init(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, remat=True)
+    batch = on_card(pipeline.next_batch(), dev)
+    torch.cuda.synchronize()
+    zero_launches()
+    t = time.perf_counter()
+    params, opt_state, metrics = step(params, opt_state, batch)
+    loss = float(metrics["loss"])
+    wall = time.perf_counter() - t
+    launches = step_launches()
+    want = {"flash_attention_fwd": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    if not math.isfinite(loss) or any(launches[n] != want[n] for n in want):
+        raise AssertionError(f"mla: {MLA_ARCH} train step: loss {loss}, "
+                             f"launches {launches}, want {want}")
+    log(f"mla: {MLA_ARCH} at full width ({cfg.n_layers} layers, "
+        f"{cfg.moe.n_held} of {cfg.moe.n_experts} experts held, vocab "
+        f"{cfg.vocab_size}, "
+        f"{sum(t.numel() for t in leaves(params))} parameters) trained one "
+        f"step at B {b} x S {s} from the raw-array pipeline with remat: "
+        f"loss {loss:.4f}, {wall:.2f} s (the first step), launches "
+        f"{launches}; peak {torch.cuda.max_memory_allocated(dev)} bytes")
+    del params, opt_state, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, [(shape, rows)]
+
+
 def main(argv=None) -> int:
     """Run every phase; any failure raises and exits non-zero."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4086,6 +4238,17 @@ def main(argv=None) -> int:
         phase_launches["gates"], replays = timed("group gates", phase_gates,
                                                  dev)
         file_replays(replays)
+    if "mla" in groups:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mla_") as tmp:
+            phase_launches["moonlight-train"], replays = timed(
+                "group mla", phase_mla, dev, Path(tmp), args.seed)
+        file_replays(replays)
+        for name in ("flash_attention_fwd", "flash_attention_bwd"):
+            if not any(row["name"] == name for row in record):
+                record.append({"name": name, "route": "cuda",
+                               "source": SOURCES[name],
+                               "replaces": REPLACES[name],
+                               "earlier": "PERF.md §6"})
     for row in record:
         name = row["name"]
         per_phase = {phase: counts[name]

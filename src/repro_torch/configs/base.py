@@ -1,14 +1,17 @@
-"""Model configuration schema shared by all ten assigned architectures.
+"""Model configuration schema shared by all eleven architectures.
 
 A model is a stack of ``n_layers`` blocks described by a repeating
 ``layer_pattern`` of (mixer, mlp) pairs — the *period*. Scan-over-layers
 iterates periods (keeps HLO size O(period), compile time flat in depth):
 
-  mixer ∈ {"attn", "mamba", "slstm", "mlstm"}
+  mixer ∈ {"attn", "mla", "mamba", "slstm", "mlstm"}
   mlp   ∈ {"dense", "moe", "none"}
 
 Dense transformers have pattern ``(("attn","dense"),)``; Jamba's 1:7
 attention:Mamba interleave with MoE every other layer is an 8-entry pattern.
+``dense_prefix`` leading layers (DeepSeek's ``first_k_dense_replace``) run
+the pattern's first mixer with a dense MLP of ``d_ff`` before the periods
+start. ``"mla"`` is DeepSeek-V2/V3's latent attention (:class:`MLAConfig`).
 """
 from __future__ import annotations
 
@@ -29,6 +32,49 @@ class MoEConfig:
     d_expert: int = 0            # expert FFN width (0 -> use d_ff)
     capacity_factor: float = 1.25
     router_jitter: float = 0.0
+    # "softmax" (the Switch loss over each token's first expert) or
+    # "sigmoid" (DeepSeek-V3: gates from sigmoid scores, the top k chosen
+    # by score + a balancing bias, the sequence-wise balance loss).
+    scoring: str = "softmax"
+    routed_scale: float = 1.0    # gates times this (routed_scaling_factor)
+    aux_weight: Optional[float] = None   # None: the train step's 0.01
+    # gamma of the balancing bias's update (sigmoid scoring only): after
+    # each step b_e += gamma * sign(mean load - load_e), outside AdamW.
+    bias_update_speed: float = 0.0
+    # The experts this chip holds of an expert-parallel group: experts
+    # held_offset .. held_offset + n_held - 1 of the n_experts the router
+    # scores (0: all of them). The layer routes over all n_experts and
+    # computes its held experts' part of the result.
+    n_held: int = 0
+    held_offset: int = 0
+
+    @property
+    def held(self) -> int:
+        """How many experts this chip holds (their weight stacks' rows)."""
+        return self.n_held or self.n_experts
+
+    @property
+    def partial(self) -> bool:
+        """Whether the layer holds only part of the experts."""
+        return self.held < self.n_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2/V3) without a query LoRA:
+    a ``kv_rank``-wide normed latent, per-head no-RoPE key and value parts
+    projected up from it, and one ``rope_dim``-wide RoPE key shared by
+    every head. q and k heads are ``nope_dim + rope_dim`` wide, value
+    heads ``v_dim``."""
+    kv_rank: int
+    nope_dim: int
+    rope_dim: int
+    v_dim: int
+
+    @property
+    def qk_dim(self) -> int:
+        """The q and k head width."""
+        return self.nope_dim + self.rope_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +107,8 @@ class ModelConfig:
     max_seq_len: int = 32_768
     moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
+    mla: Optional[MLAConfig] = None
+    dense_prefix: int = 0        # leading dense-MLP layers (d_ff wide)
     frontend: Optional[str] = None      # None | audio_frames | vision_patches
     encoder_only: bool = False
     # xLSTM block projection factor (mLSTM up-projection, paper uses 2).
@@ -83,12 +131,13 @@ class ModelConfig:
     notes: str = ""
 
     def __post_init__(self):
-        if self.n_layers % len(self.layer_pattern) != 0:
+        if (self.n_layers - self.dense_prefix) % len(self.layer_pattern) \
+                != 0:
             raise ValueError(
                 f"{self.name}: n_layers={self.n_layers} not divisible by "
                 f"pattern period {len(self.layer_pattern)}")
         for mixer, mlp in self.layer_pattern:
-            if mixer not in ("attn", "mamba", "slstm", "mlstm"):
+            if mixer not in ("attn", "mla", "mamba", "slstm", "mlstm"):
                 raise ValueError(f"unknown mixer {mixer!r}")
             if mlp not in ("dense", "moe", "none"):
                 raise ValueError(f"unknown mlp {mlp!r}")
@@ -96,6 +145,8 @@ class ModelConfig:
                 raise ValueError(f"{self.name}: moe block without MoEConfig")
             if mixer == "mamba" and self.mamba is None:
                 raise ValueError(f"{self.name}: mamba block without MambaConfig")
+            if mixer == "mla" and self.mla is None:
+                raise ValueError(f"{self.name}: mla block without MLAConfig")
 
     @property
     def period(self) -> int:
@@ -104,8 +155,16 @@ class ModelConfig:
 
     @property
     def n_periods(self) -> int:
-        """Repeats of ``layer_pattern`` in the stack."""
-        return self.n_layers // self.period
+        """Repeats of ``layer_pattern`` in the stack (after the
+        ``dense_prefix`` layers)."""
+        return (self.n_layers - self.dense_prefix) // self.period
+
+    @property
+    def layer_kinds(self) -> Tuple[Tuple[Mixer, Mlp], ...]:
+        """(mixer, mlp) of every layer, in order: the ``dense_prefix``
+        layers, then the periods."""
+        head = ((self.layer_pattern[0][0], "dense"),) * self.dense_prefix
+        return head + tuple(self.layer_pattern) * self.n_periods
 
     @property
     def resolved_head_dim(self) -> int:
@@ -119,9 +178,16 @@ class ModelConfig:
         return self.moe.d_expert or self.d_ff
 
     @property
+    def attention_dims(self) -> Tuple[int, int]:
+        """(q/k head width, value head width) of the attention mixers."""
+        if self.mla is not None:
+            return self.mla.qk_dim, self.mla.v_dim
+        return self.resolved_head_dim, self.resolved_head_dim
+
+    @property
     def uses_attention(self) -> bool:
-        """True when any block of the pattern is attention."""
-        return any(m == "attn" for m, _ in self.layer_pattern)
+        """True when any block of the pattern is (rotary) attention."""
+        return any(m in ("attn", "mla") for m, _ in self.layer_pattern)
 
     @property
     def subquadratic(self) -> bool:
@@ -143,9 +209,16 @@ class ModelConfig:
         if self.encoder_only:
             total += d * v                  # output head
         per_pattern = []
-        for mixer, mlp in self.layer_pattern:
+        for mixer, mlp in self.layer_kinds[:self.dense_prefix + self.period]:
             p = 0
-            if mixer == "attn":
+            if mixer == "mla":
+                m = self.mla
+                p += d * self.n_heads * m.qk_dim          # wq
+                p += d * (m.kv_rank + m.rope_dim)         # wkv_a
+                p += m.kv_rank                            # kv_norm
+                p += m.kv_rank * self.n_heads * (m.nope_dim + m.v_dim)
+                p += self.n_heads * m.v_dim * d           # wo
+            elif mixer == "attn":
                 p += d * (q_dim + 2 * kv_dim) + q_dim * d
                 if self.qkv_bias:
                     p += q_dim + 2 * kv_dim
@@ -168,16 +241,18 @@ class ModelConfig:
                 assert self.moe is not None
                 de = self.d_expert_resolved
                 mult = 3 if self.mlp_type == "swiglu" else 2
-                p += (self.moe.n_experts + self.moe.n_shared) * mult * d * de
+                p += (self.moe.held + self.moe.n_shared) * mult * d * de
                 p += d * self.moe.n_experts        # router
             p += 2 * d if self.norm_type != "nonparam_ln" else 0  # norms
             per_pattern.append(p)
-        total += self.n_periods * sum(per_pattern)
+        total += sum(per_pattern[:self.dense_prefix])
+        total += self.n_periods * sum(per_pattern[self.dense_prefix:])
         total += d if self.norm_type != "nonparam_ln" else 0      # final norm
         return total
 
     def active_param_count(self) -> int:
-        """Active parameters per token (MoE top-k instead of all experts)."""
+        """Active parameters per token (MoE top-k instead of all experts;
+        of a chip's held experts, the top-k's share of them)."""
         if self.moe is None:
             return self.param_count()
         full = self.param_count()
@@ -185,8 +260,10 @@ class ModelConfig:
         mult = 3 if self.mlp_type == "swiglu" else 2
         n_moe_layers = self.n_periods * sum(
             1 for _, mlp in self.layer_pattern if mlp == "moe")
-        all_e = n_moe_layers * self.moe.n_experts * mult * self.d_model * de
-        act_e = n_moe_layers * (self.moe.top_k + self.moe.n_shared) * \
-            mult * self.d_model * de
+        all_e = n_moe_layers * self.moe.held * mult * self.d_model * de
+        expert = mult * self.d_model * de
+        act_e = n_moe_layers * (self.moe.top_k * self.moe.held * expert //
+                                self.moe.n_experts +
+                                self.moe.n_shared * expert)
         shared = n_moe_layers * self.moe.n_shared * mult * self.d_model * de
         return full - (all_e + shared) + act_e

@@ -39,6 +39,9 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig
     """Returns (runnable, skip_reason)."""
     if shape.kind == "decode" and cfg.encoder_only:
         return False, "encoder-only arch: no autoregressive decode step"
+    if shape.kind == "decode" and cfg.mla is not None:
+        return False, ("latent attention: the port has no decode cache of "
+                       "the latent yet")
     if shape.name == "long_500k":
         if cfg.family not in ("ssm", "hybrid"):
             return False, ("pure full-attention arch: long_500k requires "

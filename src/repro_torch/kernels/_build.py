@@ -48,6 +48,20 @@ def _head_dims() -> Tuple[int, ...]:
 #: expand, ``head_dims.cuh``.
 HEAD_DIMS = _head_dims()
 
+
+def _head_dim_pairs() -> Tuple[Tuple[int, int], ...]:
+    """The ``X(D, DV)`` arms of ``head_dims.cuh``'s
+    ``REPRO_HEAD_DIM_PAIRS``."""
+    text = (KERNELS_DIR / "head_dims.cuh").read_text()
+    macro = text.split("#define REPRO_HEAD_DIM_PAIRS(X)", 1)[1]
+    return tuple((int(a), int(b)) for a, b in
+                 re.findall(r"X\((\d+),\s*(\d+)\)", macro))
+
+
+#: (q/k head dim, value head dim) pairs with a narrower value head that
+#: the bf16 flash kernels are instantiated for (``head_dims.cuh``).
+HEAD_DIM_PAIRS = _head_dim_pairs()
+
 #: ctypes argument types by short name, for the signature tables.
 CTYPES = {"ptr": ctypes.c_void_p, "i64": ctypes.c_int64, "i32": ctypes.c_int,
           "f32": ctypes.c_float}

@@ -54,6 +54,11 @@
 // stored; the scale is 1/sqrt(D). D > 128 is three atoms; its stages
 // hold 64 keys (Tile), S is m64n64k16 and O += P V m64n192k16: Q 48 KB
 // + 2 x (24 + 24) KB = 144 KB.
+// A value head narrower than the q/k head (latent attention's DV = 128
+// beside D = 192, REPRO_HEAD_DIM_PAIRS) takes its own tiles: K and Q are D
+// wide, V, O and the epilogue DV wide (atoms of Atom<DV>), so P V is
+// m64n{DV}k16 and nothing is padded to D: Q 48 KB + 2 x (24 + 16) KB =
+// 128 KB at (192, 128). The fp32 kernel takes D = DV only.
 //
 // flash_fwd_f32_kernel (float32 q, k, v). The reference's fp32 tolerance
 // (2e-5) rules out TF32 tensor cores, so fp32 stays on the CUDA cores: one
@@ -279,12 +284,13 @@ constexpr int kStages = 2;          // K/V ring depth
 constexpr int kConsumerWarps = 8;   // two warpgroups
 constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer warpgroup
 
-// Tiles of swizzle atoms (hopper.cuh), kPadded columns wide. At D > 128
-// a stage holds 64 keys: Q (48 KB) and two stages of 128-key K and V
-// (4 x 48 KB) would pass the 227 KB a CTA may have, and a 64-key score
-// tile (32 registers a thread) and its bf16 copy (16) beside the O
-// accumulator (96) keep a consumer near D = 128's 64 + 64 + 32.
-template <int D>
+// Tiles of swizzle atoms (hopper.cuh), kPadded columns wide (Q and K; V
+// and O kVPadded). At D > 128 a stage holds 64 keys: Q (48 KB) and two
+// stages of 128-key K and V (4 x 48 KB) would pass the 227 KB a CTA may
+// have, and a 64-key score tile (32 registers a thread) and its bf16 copy
+// (16) beside the O accumulator (96) keep a consumer near D = 128's 64 +
+// 64 + 32.
+template <int D, int DV = D>
 struct Tile {
   static constexpr int kBK = D > 128 ? 64 : 128;       // keys per K/V stage
   static constexpr int kAtomCols = Atom<D>::kCols;
@@ -292,14 +298,22 @@ struct Tile {
   static constexpr int kAtoms = Atom<D>::kCount;
   static constexpr int kPadded = Atom<D>::kPadded;     // columns in smem
   static constexpr uint64_t kLayout = Atom<D>::kLayout;  // wgmma: 128B / 64B
+  static constexpr int kVAtomCols = Atom<DV>::kCols;   // V's atoms
+  static constexpr int kVAtomBytes = Atom<DV>::kBytes;
+  static constexpr int kVAtoms = Atom<DV>::kCount;
+  static constexpr int kVPadded = Atom<DV>::kPadded;
+  static constexpr uint64_t kVLayout = Atom<DV>::kLayout;
+  static constexpr int kMaxAtoms = kAtoms > kVAtoms ? kAtoms : kVAtoms;
   static constexpr uint32_t kQBytes = kBQ * kPadded * 2;
-  static constexpr uint32_t kKVBytes = kBK * kPadded * 2;  // K or V, a stage
-  static constexpr uint32_t kBarrierOffset = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr uint32_t kKBytes = kBK * kPadded * 2;   // K, a stage
+  static constexpr uint32_t kVBytes = kBK * kVPadded * 2;  // V, a stage
+  static constexpr uint32_t kBarrierOffset =
+      kQBytes + kStages * (kKBytes + kVBytes);
   // + the barriers, + slack to align the base to 1024 bytes.
   static constexpr size_t kSmem = kBarrierOffset + 64 + 1024;
 };
 
-template <int D>
+template <int D, int DV = D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
@@ -307,13 +321,13 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       __nv_bfloat16* __restrict__ o,
                       float* __restrict__ lse, int H, int Hk, int Sq, int Sk,
                       int causal, int q_offset, float scale_log2) {
-  using T = Tile<D>;
+  using T = Tile<D, DV>;
   constexpr int kBK = T::kBK;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;                               // [atoms][kBQ rows]
   const uint32_t sK = sQ + T::kQBytes;                    // [kStages] tiles
-  const uint32_t sV = sK + kStages * T::kKVBytes;         // [kStages] tiles
+  const uint32_t sV = sK + kStages * T::kKBytes;          // [kStages] tiles
   const uint32_t q_full = base + T::kBarrierOffset;       // then full, empty
   const uint32_t full0 = q_full + 8;
   const uint32_t empty0 = full0 + 8 * kStages;
@@ -354,11 +368,14 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         const int s = t % kStages;
         const uint32_t full = full0 + 8 * s;
         mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * T::kKVBytes);
-        for (int a = 0; a < T::kAtoms; ++a) {
-          const uint32_t off = s * T::kKVBytes + a * kBK * T::kAtomBytes;
-          tma_load_3d(sK + off, &k_map, full, a * T::kAtomCols, t * kBK, kvh);
-          tma_load_3d(sV + off, &v_map, full, a * T::kAtomCols, t * kBK, kvh);
+        mbar_expect_tx(full, T::kKBytes + T::kVBytes);
+        for (int a = 0; a < T::kMaxAtoms; ++a) {
+          if (a < T::kAtoms)
+            tma_load_3d(sK + s * T::kKBytes + a * kBK * T::kAtomBytes,
+                        &k_map, full, a * T::kAtomCols, t * kBK, kvh);
+          if (a < T::kVAtoms)
+            tma_load_3d(sV + s * T::kVBytes + a * kBK * T::kVAtomBytes,
+                        &v_map, full, a * T::kVAtomCols, t * kBK, kvh);
         }
       }
     }
@@ -375,19 +392,19 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   constexpr uint32_t kSbo = 8 * T::kAtomBytes;   // between 8-row groups
   const uint32_t q_wg = sQ + wg * kRowsPerWG * T::kAtomBytes;
 
-  // O over the padded columns: at D = 80 columns 80-127 stay 0 (V's zero
+  // O over V's padded columns: at D = 80 columns 80-127 stay 0 (V's zero
   // fill) and are not stored.
-  float acc[T::kPadded / 2];
+  float acc[T::kVPadded / 2];
 #pragma unroll
-  for (int i = 0; i < T::kPadded / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < T::kVPadded / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   mbar_wait(q_full, 0);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % kStages;
     mbar_wait(full0 + 8 * s, (t / kStages) & 1);
-    const uint32_t k_s = sK + s * T::kKVBytes;
-    const uint32_t v_s = sV + s * T::kKVBytes;
+    const uint32_t k_s = sK + s * T::kKBytes;
+    const uint32_t v_s = sV + s * T::kVBytes;
 
     // S = Q K^T over the D real columns in steps of 16 (both operands
     // K-major).
@@ -443,7 +460,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rsum[r];
 #pragma unroll
-    for (int i = 0; i < T::kPadded / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < T::kVPadded / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
     // O += P V: P as bf16 A fragments in registers (the accumulator layout
     // of S is the A layout of 16-key slices), V MN-major from shared memory.
@@ -456,9 +473,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_rs<T::kPadded>(acc, pa[kk],
-                  make_desc(v_s + kk * 16 * T::kAtomBytes,
-                            kBK * T::kAtomBytes, kSbo, T::kLayout));
+      wgmma_rs<T::kVPadded>(acc, pa[kk],
+                  make_desc(v_s + kk * 16 * T::kVAtomBytes,
+                            kBK * T::kVAtomBytes, 8 * T::kVAtomBytes,
+                            T::kVLayout));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -467,8 +485,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 
   // Epilogue: row sums across the quad, normalise, store bf16 rows < Sq
-  // and their D real columns.
-  __nv_bfloat16* ob = o + static_cast<int64_t>(bh) * Sq * D;
+  // and their DV real columns.
+  __nv_bfloat16* ob = o + static_cast<int64_t>(bh) * Sq * DV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float lr = l[r];
@@ -482,31 +500,31 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     if (lse != nullptr && (lane & 3) == 0)
       lse[static_cast<int64_t>(bh) * Sq + row] =
           m[r] * 0.6931471805599453f + logf(fmaxf(lr, 1e-30f));
-    __nv_bfloat16* orow = ob + static_cast<int64_t>(row) * D + c0;
+    __nv_bfloat16* orow = ob + static_cast<int64_t>(row) * DV + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
                                 acc[4 * j + 2 * r + 1] * inv);
   }
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Hk, int Sq, int Sk, int causal, int q_offset,
            float sm_scale, cudaStream_t stream) {
-  using T = Tile<D>;
+  using T = Tile<D, DV>;
   static bool attr_set[kMaxDevices] = {};
-  cudaError_t err = set_smem_once(flash_fwd_bf16_kernel<D>, T::kSmem,
+  cudaError_t err = set_smem_once(flash_fwd_bf16_kernel<D, DV>, T::kSmem,
                                   attr_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap qm, km, vm;
   int bad = encode<D>(&qm, q, Sq, B * H, kBQ);
   if (!bad) bad = encode<D>(&km, k, Sk, B * Hk, T::kBK);
-  if (!bad) bad = encode<D>(&vm, v, Sk, B * Hk, T::kBK);
+  if (!bad) bad = encode<DV>(&vm, v, Sk, B * Hk, T::kBK);
   if (bad) return bad;
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, T::kSmem, stream>>>(
+  flash_fwd_bf16_kernel<D, DV><<<grid, kThreads, T::kSmem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, H, Hk, Sq, Sk,
       causal, q_offset, sm_scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
@@ -539,17 +557,27 @@ int64_t flash_smem_bytes(int dtype, int D) {
 }
 
 // Launch the forward on `stream`; dtype 0 = float32 (flash_fwd_f32_kernel),
-// 1 = bfloat16 (flash_fwd_bf16_kernel). `lse` is null, or (B, H, Sq) fp32
-// that receives each row's natural-log logsumexp of the scaled, masked
-// scores (the backward reads it; serving passes null). Returns 0, a
-// cudaError_t, or one of the tensor-map codes of flash_error_string.
+// 1 = bfloat16 (flash_fwd_bf16_kernel). D is q's and k's head dim, DV v's
+// (D, or the value dim of a REPRO_HEAD_DIM_PAIRS pair, bfloat16 only).
+// `lse` is null, or (B, H, Sq) fp32 that receives each row's natural-log
+// logsumexp of the scaled, masked scores (the backward reads it; serving
+// passes null). Returns 0, a cudaError_t, or one of the tensor-map codes
+// of flash_error_string.
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                      void* lse, int dtype, int B, int H, int Hk, int Sq,
-                     int Sk, int D, int causal, int q_offset, float sm_scale,
-                     void* stream) {
+                     int Sk, int D, int DV, int causal, int q_offset,
+                     float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
 #define REPRO_FLASH_ARGS q, k, v, o, l, B, H, Hk, Sq, Sk, causal, q_offset, sm_scale, s
+  if (DV != D) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_PAIR(d, dv) \
+    if (D == d && DV == dv) return bf16::launch<d, dv>(REPRO_FLASH_ARGS);
+    REPRO_HEAD_DIM_PAIRS(REPRO_PAIR)
+#undef REPRO_PAIR
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 0) {
     switch (D) {
 #define REPRO_ARM(d) case d: return f32::launch<d>(REPRO_FLASH_ARGS);

@@ -30,7 +30,12 @@ One call counts one launch under ``"flash_attention_bwd"``.
 There is no fallback between a kernel and its plain version: a kernel
 that fails to build or launch raises. The kernels take float32 and
 bfloat16 and head dims in :data:`HEAD_DIMS`; anything else raises on a
-CUDA tensor.
+CUDA tensor. v may have a value head narrower than q's and k's where the
+pair is one of :data:`HEAD_DIM_PAIRS` (latent attention's (192, 128)):
+q K^T runs over the q/k dim, P V, the output, dO, dV and the backward's
+delta over the value dim, and v is never padded to the q/k width. Those
+pairs have bf16 kernels only (a float32 CUDA input raises), and their
+plain versions serve the CPU; any other value width raises everywhere.
 
 ``bq`` and ``bk`` keep the reference's contract (``Sq % bq == 0`` and
 ``Sk % bk == 0``, which ``ops`` meets by padding) but do not reach the
@@ -45,7 +50,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels._build import HEAD_DIMS, CudaLibrary
+from repro_torch.kernels._build import HEAD_DIM_PAIRS, HEAD_DIMS, CudaLibrary
 from repro_torch.kernels._tensors import aligned16, run_op
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
@@ -67,7 +72,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LIBRARY = CudaLibrary("flash", Path(__file__).with_name("flash_attention.cu"), {
     "flash_fwd_launch": (("ptr", "ptr", "ptr", "ptr", "ptr", "i32", "i32",
                           "i32", "i32", "i32", "i32", "i32", "i32", "i32",
-                          "f32", "ptr"), "i32"),
+                          "i32", "f32", "ptr"), "i32"),
     "flash_smem_bytes": (("i32", "i32"), "i64"),
 })
 
@@ -76,8 +81,8 @@ LIBRARY = CudaLibrary("flash", Path(__file__).with_name("flash_attention.cu"), {
 #: head dim.
 LIBRARY_BWD = CudaLibrary(
     "flash_bwd", Path(__file__).with_name("flash_attention_bwd.cu"), {
-        "flash_bwd_launch": (("ptr",) * 10 + ("i32",) * 9 + ("f32", "ptr"),
-                             "i32"),
+        "flash_bwd_launch": (("ptr",) * 10 + ("i32",) * 10 +
+                             ("f32", "ptr"), "i32"),
         "flash_bwd_smem_bytes": (("i32", "i32", "i32"), "i64"),
     })
 
@@ -85,12 +90,17 @@ LIBRARY_BWD = CudaLibrary(
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bq: int, bk: int, q_offset: int) -> None:
     """The reference's contract (``flash_attention.py:69``): H % Hk == 0,
-    Sq % bq == 0, Sk % bk == 0; plus matching shapes, one device, at
+    Sq % bq == 0, Sk % bk == 0; plus matching shapes (v's last dim k's, or
+    the value dim of a pair in :data:`HEAD_DIM_PAIRS`), one device, at
     least one key and a non-negative ``q_offset``."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"expected q (B, H, Sq, D) and k, v (B, Hk, Sk, D),"
-                         f" got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            k.shape[:3] != v.shape[:3] or not (
+                v.shape[3] == k.shape[3] or
+                (k.shape[3], v.shape[3]) in HEAD_DIM_PAIRS):
+        raise ValueError(f"expected q (B, H, Sq, D), k (B, Hk, Sk, D) and v "
+                         f"(B, Hk, Sk, D) or (B, Hk, Sk, DV) with (D, DV) in "
+                         f"{HEAD_DIM_PAIRS}, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, h, sq, d = q.shape
     _, hk, sk, _ = k.shape
     if k.shape[0] != b or k.shape[3] != d:
@@ -125,8 +135,9 @@ def _on_cpu(t: torch.Tensor) -> None:
 def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> None:
     """What the CUDA kernels take beyond the reference's contract: one
-    dtype of float32 or bfloat16, a head dim of :data:`HEAD_DIMS`, a grid
-    and element counts that fit their index types."""
+    dtype of float32 or bfloat16, a head dim of :data:`HEAD_DIMS` (or a
+    pair of :data:`HEAD_DIM_PAIRS`, bfloat16 only), a grid and element
+    counts that fit their index types."""
     b, h, _, d = q.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the CUDA flash kernels take float32 or bfloat16 "
@@ -135,6 +146,10 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"the CUDA flash kernels take head dims "
                          f"{HEAD_DIMS}, got {d}")
+    if v.shape[3] != d and q.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA flash kernels take the head dim pair "
+                        f"({d}, {v.shape[3]}) in bfloat16 only, got "
+                        f"{q.dtype}")
     if b > 65535 or h > 65535:
         raise ValueError(f"grid too large: B={b}, H={h}")
     if max(q.numel(), k.numel()) >= 2 ** 31:
@@ -146,7 +161,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         q_offset: int = 0, impl: str = "kernel",
                         return_lse: bool = False):
     """q: (B, H, Sq, D); k, v: (B, Hk, Sk, D) with H % Hk == 0, Sq % bq
-    == 0 and Sk % bk == 0 (``ops`` pads). Returns (B, H, Sq, D) in q's
+    == 0 and Sk % bk == 0 (``ops`` pads); v may be (B, Hk, Sk, DV) for a
+    pair of :data:`HEAD_DIM_PAIRS`. Returns (B, H, Sq, DV) in q's
     dtype. With ``causal``, query i sees keys j <= i + q_offset. With
     ``return_lse``, returns ``(out, lse)``: lse (B, H, Sq) fp32 is each
     row's natural-log logsumexp of the scaled, masked scores.
@@ -189,7 +205,7 @@ _fwd_op = torch.library.custom_op("repro_torch::flash_attention_fwd",
 def _fwd_fake(q, k, v, causal, q_offset, return_lse):
     """Outputs of the right shapes and dtypes, nothing computed."""
     b, h, sq, _ = q.shape
-    return torch.empty_like(q), q.new_empty(
+    return q.new_empty((b, h, sq, v.shape[3])), q.new_empty(
         (b, h, sq) if return_lse else (0,), dtype=torch.float32)
 
 
@@ -199,8 +215,9 @@ def _fwd_cuda(q, k, v, causal, q_offset, return_lse):
     _check_kernel_inputs(q, k, v)
     b, h, sq, d = q.shape
     _, hk, sk, _ = k.shape
+    dv = v.shape[3]
     q, k, v = (aligned16(x.contiguous()) for x in (q, k, v))
-    out = torch.empty_like(q)
+    out = q.new_empty((b, h, sq, dv))
     lse = torch.empty((b, h, sq) if return_lse else (0,),
                       dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -211,7 +228,7 @@ def _fwd_cuda(q, k, v, causal, q_offset, return_lse):
         err = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    out.data_ptr(),
                                    lse.data_ptr() if return_lse else None,
-                                   _DTYPES[q.dtype], b, h, hk, sq, sk, d,
+                                   _DTYPES[q.dtype], b, h, hk, sq, sk, d, dv,
                                    int(bool(causal)), int(q_offset),
                                    1.0 / math.sqrt(d), stream)
     LIBRARY.check(err, "flash_attention_fwd")
@@ -224,8 +241,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
                         q_offset: int = 0, impl: str = "kernel"):
     """Gradients (dq, dk, dv) of :func:`flash_attention_fwd` from its
-    ``out`` and ``lse``: q, out, dout (B, H, Sq, D); k, v (B, Hk, Sk, D);
-    lse (B, H, Sq) fp32. dq has q's shape and dtype, dk and dv k's (summed
+    ``out`` and ``lse``: q (B, H, Sq, D); out, dout (B, H, Sq, DV); k (B,
+    Hk, Sk, D), v (B, Hk, Sk, DV); lse (B, H, Sq) fp32. dq has q's shape and dtype, dk and dv k's (summed
     over each kv head's group of query heads). ``impl="kernel"`` runs
     the op ``repro_torch::flash_attention_bwd`` (the CUDA kernels for
     CUDA tensors, :func:`ref.attention_bwd_ref` for CPU tensors, shapes
@@ -234,12 +251,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (no atomics)."""
     _check_shapes(q, k, v, 1, 1, q_offset)
     b, h, sq, d = q.shape
-    if out.shape != q.shape or dout.shape != q.shape or \
+    want = (b, h, sq, v.shape[3])
+    if tuple(out.shape) != want or tuple(dout.shape) != want or \
             tuple(lse.shape) != (b, h, sq):
         raise ValueError(f"out {tuple(out.shape)} and dout "
-                         f"{tuple(dout.shape)} must be q's shape "
-                         f"{tuple(q.shape)}, lse {tuple(lse.shape)} must be "
-                         f"{(b, h, sq)}")
+                         f"{tuple(dout.shape)} must be {want}, lse "
+                         f"{tuple(lse.shape)} must be {(b, h, sq)}")
     _check_impl(impl)
     if impl == "plain":
         return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
@@ -299,7 +316,7 @@ def _bwd_cuda(q, k, v, out, lse, dout, causal, q_offset):
                                    lse.data_ptr(), delta.data_ptr(),
                                    dq.data_ptr(), dk.data_ptr(),
                                    dv.data_ptr(), _DTYPES[q.dtype], b, h, hk,
-                                   sq, sk, d, int(bool(causal)),
+                                   sq, sk, d, v.shape[3], int(bool(causal)),
                                    int(q_offset), 1.0 / math.sqrt(d), stream)
     LIBRARY_BWD.check(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1

@@ -428,6 +428,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // wide; at D > 128 (three atoms) a consumer holds a 96-register
 // gradient, the gradient products are m64n192k16, and shared memory is
 // dK/dV 161 KB, dQ 193 KB.
+// A value head narrower than the q/k head (latent attention's (D, DV) =
+// (192, 128), REPRO_HEAD_DIM_PAIRS): K and Q tiles are D wide, V and dO
+// tiles DV wide, S and dS reduce over D and dP over DV; dQ and dK are
+// m64n{D} products, dV an m64n{DV} one, and delta sums DV columns. The
+// dK/dV kernel's two warpgroups then hold accumulators of two widths, so
+// each runs its own copy of the stage loop (dkdv_consume). The square
+// dims keep their one loop for both warpgroups: run through dkdv_consume
+// they give the same bits 4.5-7.5 % slower (H100 80GB HBM3, 700 W; D 128
+// and 192, S 4096). Shared memory at (192, 128): dK/dV 137 KB, dQ 161 KB.
 namespace wg {
 
 using namespace hopper;
@@ -441,17 +450,20 @@ constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The shared-memory layout of both kernels (tiles Atom<D>::kPadded columns
-// wide): two tiles of kOnce rows
-// loaded once, then kStages x two tiles of kRows rows; in the dK/dV
+// wide for K and Q, Atom<DV>::kPadded for V and dO): two tiles of kOnce
+// rows loaded once (the D-wide one first), then kStages x two tiles of
+// kRows rows (likewise); in the dK/dV
 // kernel then kStages x P (the 16 bf16-pair words of each of a
 // warpgroup's 128 threads, word i of every thread in row i) and kStages x
 // (lse * log2(e), delta) of kRows query rows; then the mbarriers.
-template <int D, int kOnce, bool kDkdv>
+template <int D, int DV, int kOnce, bool kDkdv>
 struct Smem {
   static constexpr uint32_t kTileBytes = kOnce * Atom<D>::kPadded * 2;
+  static constexpr uint32_t kTile2Bytes = kOnce * Atom<DV>::kPadded * 2;
   static constexpr uint32_t kStageBytes = kRows * Atom<D>::kPadded * 2;
+  static constexpr uint32_t kStage2Bytes = kRows * Atom<DV>::kPadded * 2;
   static constexpr uint32_t kPOffset =
-      2 * kTileBytes + 2 * kStages * kStageBytes;
+      kTileBytes + kTile2Bytes + kStages * (kStageBytes + kStage2Bytes);
   static constexpr uint32_t kPWords = 16 * 128;    // a stage's P
   static constexpr uint32_t kRowsOffset =
       kPOffset + (kDkdv ? kStages * kPWords * 4 : 0);
@@ -460,10 +472,10 @@ struct Smem {
   // + the barriers, + slack to align the base to 1024 bytes.
   static constexpr size_t kSmem = kBarrierOffset + 64 + 1024;
 };
-template <int D>
-using DkdvSmem = Smem<D, kRows, true>;
-template <int D>
-using DqSmem = Smem<D, kTile, false>;
+template <int D, int DV = D>
+using DkdvSmem = Smem<D, DV, kRows, true>;
+template <int D, int DV = D>
+using DqSmem = Smem<D, DV, kTile, false>;
 
 // Rows [r0, r0 + rows) of head `head` into a tile of `rows` rows, one box
 // of kRows rows per swizzle atom and 64-row block.
@@ -528,7 +540,104 @@ __device__ __forceinline__ void store_rows(
   }
 }
 
-template <int D>
+// The dK/dV kernel's consumer warpgroup kWg (0: P and dV += P^T dO; 1:
+// dP, dS and dK += dS^T Q) where the value head is narrower than the q/k
+// head: flash_bwd_dkdv_wgmma_kernel's stage loop, each warpgroup with its
+// own score product (S^T over D, dP^T over DV) and accumulator width (DV
+// for dV, D for dK), then the gradient's store into `dst` (the kv head's
+// (Sk, width) rows). The arithmetic is the D = DV loop's.
+template <int D, int DV, int kWg>
+__device__ __forceinline__ void dkdv_consume(
+    uint32_t sK, uint32_t sV, uint32_t sQ, uint32_t sG, uint32_t* pbuf,
+    const float* rows, uint32_t full0, uint32_t empty0, int k0, int q_first,
+    int n_q, int n_stages, int Sq, int Sk, int causal, int q_offset,
+    float sm_scale, int lane, int tid, int rk, int c0, bf16* dst) {
+  using L = DkdvSmem<D, DV>;
+  constexpr int W = kWg == 0 ? DV : D;   // the gradient's width
+  constexpr int kPadded = Atom<W>::kPadded;
+  const float scale_log2 = sm_scale * kLog2e;
+  float acc[kPadded / 2];
+#pragma unroll
+  for (int i = 0; i < kPadded / 2; ++i) acc[i] = 0.f;
+  uint32_t pa[4][4];
+  int held = -1;
+  for (int t = 0; t < n_stages; ++t) {
+    const int s = t % kStages;
+    const int q0 = q_first + (t % n_q) * kRows;
+    mbar_wait(full0 + 8 * s, (t / kStages) & 1);
+    const uint32_t q_s = sQ + s * L::kStageBytes;
+    const uint32_t g_s = sG + s * L::kStage2Bytes;
+    const float* ls = rows + s * 2 * kRows;
+    uint32_t* ps = pbuf + s * L::kPWords + tid;
+    float sc[32];   // S^T or dP^T: keys x queries
+    wgmma_fence();
+    if constexpr (kWg == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, desc_k<D>(sK, kRows, 0, kk),
+                     desc_k<D>(q_s, kRows, 0, kk), kk > 0);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk)
+        wgmma_ss_n64(sc, desc_k<DV>(sV, kRows, 0, kk),
+                     desc_k<DV>(g_s, kRows, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous stage's product is done
+    if (held >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * held);
+    }
+    wgmma_wait_all();
+    fence_regs(sc);
+    if constexpr (kWg == 0) {
+      const bool edge = k0 + kRows > Sk || q0 + kRows > Sq ||
+                        (causal && k0 + kRows - 1 > q0 + q_offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float l2 = ls[8 * (i >> 2) + c0 + (i & 1)];
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, -l2));
+        if (edge) {
+          const int kj = rk + 8 * ((i >> 1) & 1);
+          const int qi = q0 + 8 * (i >> 2) + c0 + (i & 1);
+          if (kj >= Sk || qi >= Sq || (causal && kj > qi + q_offset))
+            sc[i] = 0.f;
+        }
+      }
+      pack_a(pa, sc);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) ps[128 * i] = pa[i / 4][i % 4];
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + s) : "memory");
+    } else {
+      asm volatile("bar.sync %0, 256;\n" ::"r"(1 + s) : "memory");
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pa[i / 4][i % 4] = ps[128 * i];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const uint32_t pair = pa[i / 8][(i % 8) / 2];
+        const float pv = __uint_as_float((i & 1) ? pair & 0xFFFF0000u
+                                                 : pair << 16);
+        sc[i] = pv * (sc[i] - ls[kRows + 8 * (i >> 2) + c0 + (i & 1)]) *
+                sm_scale;
+      }
+      pack_a(pa, sc);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<kPadded>(acc, pa[kk],
+                        desc_mn<W>(kWg == 0 ? g_s : q_s, kRows, kk));
+    wgmma_commit();
+    held = s;
+  }
+  wgmma_wait_all();
+  fence_regs(acc);
+  __syncwarp();
+  if (held >= 0 && lane == 0) mbar_arrive(empty0 + 8 * held);
+  store_rows<W>(dst, acc, rk, c0, Sk);
+}
+
+template <int D, int DV = D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
@@ -539,13 +648,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             bf16* __restrict__ dk, bf16* __restrict__ dv,
                             int H, int Hk, int Sq, int Sk, int causal,
                             int q_offset, float sm_scale) {
-  using L = DkdvSmem<D>;
+  using L = DkdvSmem<D, DV>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t sK = base;                          // [atoms][kRows rows]
   const uint32_t sV = sK + L::kTileBytes;
-  const uint32_t sQ = sV + L::kTileBytes;            // [kStages] stage tiles
+  const uint32_t sQ = sV + L::kTile2Bytes;           // [kStages] stage tiles
   const uint32_t sG = sQ + kStages * L::kStageBytes; // dO, [kStages]
   uint32_t* pbuf = reinterpret_cast<uint32_t*>(gbase + L::kPOffset);
   float* rows = reinterpret_cast<float*>(gbase + L::kRowsOffset);
@@ -578,9 +687,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (warp == kConsumerWarps) {
       if (lane == 0) {
-        mbar_expect_tx(kv_full, 2 * L::kTileBytes);
+        mbar_expect_tx(kv_full, L::kTileBytes + L::kTile2Bytes);
         tma_tile<D>(sK, &k_map, kv_full, kRows, k0, bhk);
-        tma_tile<D>(sV, &v_map, kv_full, kRows, k0, bhk);
+        tma_tile<DV>(sV, &v_map, kv_full, kRows, k0, bhk);
       }
       for (int t = 0; t < n_stages; ++t) {
         const int s = t % kStages;
@@ -589,9 +698,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const uint32_t full = full0 + 8 * s;
         mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
         if (lane == 0) {
-          mbar_expect_tx(full, 2 * L::kStageBytes);
+          mbar_expect_tx(full, L::kStageBytes + L::kStage2Bytes);
           tma_tile<D>(sQ + s * L::kStageBytes, &q_map, full, kRows, q0, bh);
-          tma_tile<D>(sG + s * L::kStageBytes, &g_map, full, kRows, q0, bh);
+          tma_tile<DV>(sG + s * L::kStage2Bytes, &g_map, full, kRows, q0,
+                       bh);
         }
         float* ls = rows + s * 2 * kRows;
         for (int r = lane; r < kRows; r += 32) {
@@ -618,12 +728,25 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int rk = k0 + 16 * (warp % 4) + lane / 4;
   const int c0 = 2 * (lane % 4);
   const float scale_log2 = sm_scale * kLog2e;
+  mbar_wait(kv_full, 0);
+  if constexpr (D != DV) {
+    if (wg == 0)
+      dkdv_consume<D, DV, 0>(sK, sV, sQ, sG, pbuf, rows, full0, empty0, k0,
+                             q_first, n_q, n_stages, Sq, Sk, causal,
+                             q_offset, sm_scale, lane, tid, rk, c0,
+                             dv + static_cast<int64_t>(bhk) * Sk * DV);
+    else
+      dkdv_consume<D, DV, 1>(sK, sV, sQ, sG, pbuf, rows, full0, empty0, k0,
+                             q_first, n_q, n_stages, Sq, Sk, causal,
+                             q_offset, sm_scale, lane, tid, rk, c0,
+                             dk + static_cast<int64_t>(bhk) * Sk * D);
+    return;
+  }
 
   constexpr int kPadded = Atom<D>::kPadded;
   float acc[kPadded / 2];   // dV (warpgroup 0) or dK (warpgroup 1)
 #pragma unroll
   for (int i = 0; i < kPadded / 2; ++i) acc[i] = 0.f;
-  mbar_wait(kv_full, 0);
 
   // A stage's gradient product is left in flight while the next stage's
   // score product is issued; the stage's slot is handed back once its
@@ -705,7 +828,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   store_rows<D>((wg == 0 ? dv : dk) + kv_off, acc, rk, c0, Sk);
 }
 
-template <int D>
+template <int D, int DV = D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
@@ -715,12 +838,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dq, int H, int Hk, int Sq,
                           int Sk, int causal, int q_offset, float sm_scale) {
-  using L = DqSmem<D>;
+  using L = DqSmem<D, DV>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;                          // [atoms][kTile rows]
   const uint32_t sG = sQ + L::kTileBytes;            // dO
-  const uint32_t sK = sG + L::kTileBytes;            // [kStages] stage tiles
+  const uint32_t sK = sG + L::kTile2Bytes;           // [kStages] stage tiles
   const uint32_t sV = sK + kStages * L::kStageBytes;
   const uint32_t q_full = base + L::kBarrierOffset;  // then full, empty
   const uint32_t full0 = q_full + 8;
@@ -750,19 +873,19 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (warp >= kConsumerWarps) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (warp == kConsumerWarps && lane == 0) {
-      mbar_expect_tx(q_full, 2 * L::kTileBytes);
+      mbar_expect_tx(q_full, L::kTileBytes + L::kTile2Bytes);
       tma_tile<D>(sQ, &q_map, q_full, kTile, q0, bh);
-      tma_tile<D>(sG, &g_map, q_full, kTile, q0, bh);
+      tma_tile<DV>(sG, &g_map, q_full, kTile, q0, bh);
       const int kvh = b * Hk + hk;
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         const uint32_t full = full0 + 8 * s;
         mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * L::kStageBytes);
+        mbar_expect_tx(full, L::kStageBytes + L::kStage2Bytes);
         tma_tile<D>(sK + s * L::kStageBytes, &k_map, full, kRows, t * kRows,
                     kvh);
-        tma_tile<D>(sV + s * L::kStageBytes, &v_map, full, kRows, t * kRows,
-                    kvh);
+        tma_tile<DV>(sV + s * L::kStage2Bytes, &v_map, full, kRows,
+                     t * kRows, kvh);
       }
     }
     return;
@@ -806,7 +929,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_wait(full0 + 8 * s, (t / kStages) & 1);
     if (kt0 < wg_end) {
       const uint32_t k_s = sK + s * L::kStageBytes;
-      const uint32_t v_s = sV + s * L::kStageBytes;
+      const uint32_t v_s = sV + s * L::kStage2Bytes;
       // S, P rounded to bf16 at once, then dP into S's registers: S and
       // dP are never held together beside dQ and the product in flight.
       float sc[32];   // S, then dP: queries x keys
@@ -841,9 +964,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       pack_a(pa, sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(sc, desc_k<D>(sG, kTile, wg * kRows, kk),
-                     desc_k<D>(v_s, kRows, 0, kk), kk > 0);
+      for (int kk = 0; kk < DV / 16; ++kk)
+        wgmma_ss_n64(sc, desc_k<DV>(sG, kTile, wg * kRows, kk),
+                     desc_k<DV>(v_s, kRows, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
@@ -884,7 +1007,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 // ------------------------------------------------------------- launch
 
-template <typename T, int D>
+template <typename T, int D, int DV = D>
 int launch(const void* q, const void* k, const void* v, const void* out,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int H, int Hk, int Sq, int Sk,
@@ -897,38 +1020,40 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   const T* gt = static_cast<const T*>(dout);
   const int64_t rows = static_cast<int64_t>(B) * H * Sq;
   const int64_t delta_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  flash_bwd_delta_kernel<T, D>
+  flash_bwd_delta_kernel<T, DV>
       <<<static_cast<unsigned>(delta_blocks), kThreads, 0, stream>>>(
           static_cast<const T*>(out), gt, delta, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    constexpr size_t dkdv_smem = wg::DkdvSmem<D>::kSmem;
-    constexpr size_t dq_smem = wg::DqSmem<D>::kSmem;
-    err = set_smem_once(wg::flash_bwd_dkdv_wgmma_kernel<D>, dkdv_smem,
+    constexpr size_t dkdv_smem = wg::DkdvSmem<D, DV>::kSmem;
+    constexpr size_t dq_smem = wg::DqSmem<D, DV>::kSmem;
+    err = set_smem_once(wg::flash_bwd_dkdv_wgmma_kernel<D, DV>, dkdv_smem,
                         dkdv_set);
     if (err == cudaSuccess)
-      err = set_smem_once(wg::flash_bwd_dq_wgmma_kernel<D>, dq_smem, dq_set);
+      err = set_smem_once(wg::flash_bwd_dq_wgmma_kernel<D, DV>, dq_smem,
+                          dq_set);
     if (err != cudaSuccess) return static_cast<int>(err);
     // One set of maps, boxes of 64 rows, serves both kernels.
     CUtensorMap qm, km, vm, gm;
     int bad = hopper::encode<D>(&qm, q, Sq, B * H, wg::kRows);
-    if (!bad) bad = hopper::encode<D>(&gm, dout, Sq, B * H, wg::kRows);
+    if (!bad) bad = hopper::encode<DV>(&gm, dout, Sq, B * H, wg::kRows);
     if (!bad) bad = hopper::encode<D>(&km, k, Sk, B * Hk, wg::kRows);
-    if (!bad) bad = hopper::encode<D>(&vm, v, Sk, B * Hk, wg::kRows);
+    if (!bad) bad = hopper::encode<DV>(&vm, v, Sk, B * Hk, wg::kRows);
     if (bad) return bad;
-    wg::flash_bwd_dkdv_wgmma_kernel<D>
+    wg::flash_bwd_dkdv_wgmma_kernel<D, DV>
         <<<dim3(B * Hk, (Sk + wg::kRows - 1) / wg::kRows), wg::kThreads,
            dkdv_smem, stream>>>(qm, km, vm, gm, lse, delta, static_cast<T*>(dk),
                      static_cast<T*>(dv), H, Hk, Sq, Sk, causal, q_offset,
                      sm_scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    wg::flash_bwd_dq_wgmma_kernel<D>
+    wg::flash_bwd_dq_wgmma_kernel<D, DV>
         <<<dim3(B * H, (Sq + wg::kTile - 1) / wg::kTile), wg::kThreads,
            dq_smem, stream>>>(qm, km, vm, gm, lse, delta, static_cast<T*>(dq), H, Hk,
                      Sq, Sk, causal, q_offset, sm_scale);
   } else {
+    static_assert(D == DV, "the float32 kernels take D = DV only");
     constexpr size_t dkdv_smem = dkdv_smem_bytes<D>();
     constexpr size_t dq_smem = dq_smem_bytes<D>();
     err = set_smem_once(flash_bwd_dkdv_kernel<T, D>, dkdv_smem, dkdv_set);
@@ -980,18 +1105,29 @@ int64_t flash_bwd_smem_bytes(int dtype, int which, int D) {
 }
 
 // Launch the backward on `stream`: delta into `delta` (B * H * Sq fp32
-// scratch), then dK/dV and dQ. dtype 0 = float32, 1 = bfloat16. Returns 0,
-// the first cudaError_t, or a tensor-map code of flash_bwd_error_string.
+// scratch), then dK/dV and dQ. dtype 0 = float32, 1 = bfloat16. D is q's
+// and k's head dim, DV v's (D, or the value dim of a REPRO_HEAD_DIM_PAIRS
+// pair, bfloat16 only). Returns 0, the first cudaError_t, or a tensor-map
+// code of flash_bwd_error_string.
 int flash_bwd_launch(const void* q, const void* k, const void* v,
                      const void* out, const void* dout, const void* lse,
                      void* delta, void* dq, void* dk, void* dv, int dtype,
-                     int B, int H, int Hk, int Sq, int Sk, int D, int causal,
-                     int q_offset, float sm_scale, void* stream) {
+                     int B, int H, int Hk, int Sq, int Sk, int D, int DV,
+                     int causal, int q_offset, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
 #define REPRO_BWD_ARGS q, k, v, out, dout, l, dl, dq, dk, dv, B, H, Hk, Sq, \
                        Sk, causal, q_offset, sm_scale, s
+  if (DV != D) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_PAIR(d, dvd)                                                \
+    if (D == d && DV == dvd)                                              \
+      return launch<__nv_bfloat16, d, dvd>(REPRO_BWD_ARGS);
+    REPRO_HEAD_DIM_PAIRS(REPRO_PAIR)
+#undef REPRO_PAIR
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 0) {
     switch (D) {
 #define REPRO_ARM(d) case d: return launch<float, d>(REPRO_BWD_ARGS);

@@ -32,8 +32,8 @@ def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, q_offset: int = 0,
                   return_lse: bool = False):
-    """q: (B, H, Sq, D); k, v: (B, Hk, Sk, D) -> (B, H, Sq, D) in q's
-    dtype. Scores, softmax and the weighted sum run in fp32; with
+    """q: (B, H, Sq, D); k: (B, Hk, Sk, D); v: (B, Hk, Sk, DV) -> (B, H,
+    Sq, DV) in q's dtype (DV = D but for latent attention's pairs). Scores, softmax and the weighted sum run in fp32; with
     ``causal``, query i sees keys j <= i + q_offset. ``return_lse`` also
     returns the (B, H, Sq) fp32 natural-log logsumexp of the masked
     scores, as the reference's ``_blockwise_impl`` does."""
@@ -59,14 +59,15 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key blocks of :data:`BWD_BLOCK` that recomputes each block's
     probabilities ``p = exp(s - lse)``.
 
-    q, out, dout: (B, H, Sq, D); k, v: (B, Hk, Sk, D); lse: (B, H, Sq)
-    fp32. ``delta = sum_d dout * out``, ``ds = p (dp - delta) / sqrt(D)``
+    q: (B, H, Sq, D); out, dout: (B, H, Sq, DV); k: (B, Hk, Sk, D); v:
+    (B, Hk, Sk, DV); lse: (B, H, Sq) fp32. ``delta = sum over DV of dout *
+    out``, ``ds = p (dp - delta) / sqrt(D)``
     with ``dp = dout v^T``; dq, dk and dv are summed in fp32, dk and dv
     then over each GQA group of H / Hk query heads, and all three are
     cast to the inputs' dtype. Scores are fp32 products of the inputs, as
     in the forward whose ``lse`` this reads."""
     b, h, sq, d = q.shape
-    hk, sk = k.shape[1], k.shape[2]
+    hk, sk, dv_dim = k.shape[1], k.shape[2], v.shape[3]
     rep = h // hk
     scale = 1.0 / math.sqrt(d)
     kx = torch.repeat_interleave(k, rep, dim=1)
@@ -76,7 +77,7 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.einsum("bhqd,bhqd->bhq", doutf, out.float())
     dq = torch.zeros(b, h, sq, d, dtype=torch.float32, device=q.device)
     dk = torch.zeros(b, h, sk, d, dtype=torch.float32, device=q.device)
-    dv = torch.zeros(b, h, sk, d, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(b, h, sk, dv_dim, dtype=torch.float32, device=q.device)
     for k0 in range(0, sk, BWD_BLOCK):
         kb = kx[:, :, k0:k0 + BWD_BLOCK].float()
         vb = vx[:, :, k0:k0 + BWD_BLOCK].float()
@@ -90,5 +91,5 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                    qf)
         dq += torch.einsum("bhqk,bhkd->bhqd", ds, kb)
     dk = dk.view(b, hk, rep, sk, d).sum(2)
-    dv = dv.view(b, hk, rep, sk, d).sum(2)
+    dv = dv.view(b, hk, rep, sk, dv_dim).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

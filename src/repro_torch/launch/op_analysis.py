@@ -154,23 +154,24 @@ def _live_pairs(sq: int, sk: int, causal: bool, q_offset: int = 0) -> int:
 
 
 def _flash_fwd_cost(args, out) -> Tuple[float, float]:
-    """Flash forward: 4 B H D per live pair; q, k, v in, out (and lse)
-    written."""
-    q, k = args[0], args[1]
+    """Flash forward: 2 B H (D + DV) per live pair (Q K^T over the q/k
+    dim, P V over the value dim); q, k, v in, out (and lse) written."""
+    q, k, v = args[0], args[1], args[2]
     b, h, sq, d = q.shape
     live = _live_pairs(sq, k.shape[2], bool(args[3]), int(args[4]))
-    return (4.0 * b * h * d * live,
+    return (2.0 * b * h * (d + v.shape[3]) * live,
             sum(nbytes(t) for t in args[:3]) + sum(nbytes(t) for t in out))
 
 
 def _flash_bwd_cost(args, out) -> Tuple[float, float]:
     """Flash backward: the probabilities recomputed and four more
-    products, 10 B H D per live pair; six inputs in, three gradients
-    out."""
-    q, k = args[0], args[1]
+    products, 2 B H (3 D + 2 DV) per live pair (S, dK and dQ over the q/k
+    dim, dP and dV over the value dim: 10 B H D where they are equal); six
+    inputs in, three gradients out."""
+    q, k, v = args[0], args[1], args[2]
     b, h, sq, d = q.shape
     live = _live_pairs(sq, k.shape[2], bool(args[6]), int(args[7]))
-    return (10.0 * b * h * d * live,
+    return (2.0 * b * h * (3 * d + 2 * v.shape[3]) * live,
             sum(nbytes(t) for t in args[:6]) + sum(nbytes(t) for t in out))
 
 

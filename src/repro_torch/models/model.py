@@ -1,12 +1,17 @@
-"""Model assembly for all ten architectures.
+"""Model assembly for all eleven architectures.
 
 The port of ``repro/models/model.py``. The reference scans over periods
 of stacked per-period weights to keep its HLO small; PyTorch runs
 eagerly, so here the stack is a loop over layers and ``params["layers"]``
 holds one dict of tensors per layer (layer ``p * period + i`` is block
 ``b{i}`` of period ``p`` in the reference's pytree). A block is a mixer
-(``attn``, ``mamba``, ``mlstm`` or ``slstm``) and an MLP (``dense``,
-``moe`` or ``none``), as ``cfg.layer_pattern`` says. Decode state is one
+(``attn``, ``mla``, ``mamba``, ``mlstm`` or ``slstm``) and an MLP
+(``dense``, ``moe`` or ``none``), as ``cfg.layer_kinds`` says (the
+pattern's periods after ``cfg.dense_prefix`` dense layers). An MoE layer
+with a balancing bias (``moe.bias_update_speed``) keeps it as its leaf
+``mlp/bias``, which no gradient reaches; :func:`forward` can hand back
+each such layer's expert load for its update. Latent attention has no
+decode cache yet: the decode entry points refuse it. Decode state is one
 dict per layer, the lane on axis 0 of every tensor: ``{"k", "v"}`` for
 attention, ``{"h", "conv"}`` for Mamba, ``{"C", "n", "m"}`` for mLSTM and
 ``{"c", "n", "m", "h"}`` for sLSTM.
@@ -33,13 +38,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (Params, apply_mlp, apply_norm, embed,
                                        init_embedding, init_mlp, init_norm,
                                        rope_tables, unembed)
 from repro_torch.obs.telemetry import NULL_TELEMETRY, Telemetry
-from repro_torch.sharding.local import pick_last, seq_parallel
+from repro_torch.sharding.local import (is_dtensor, on_all_rows,
+                                        on_batch_rows, pick_last,
+                                        seq_parallel)
 
 DecodeState = List[Dict[str, torch.Tensor]]
 
@@ -58,12 +66,13 @@ def resolve_device(device) -> torch.device:
 
 def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
     """(mixer, mlp) of every layer, in order."""
-    return list(cfg.layer_pattern) * cfg.n_periods
+    return list(cfg.layer_kinds)
 
 
 # ------------------------------------------------------------------- init --
 
-_INIT_MIXER = {"attn": attn.init_attention, "mamba": ssm.init_mamba,
+_INIT_MIXER = {"attn": attn.init_attention, "mla": mla_mod.init_mla,
+               "mamba": ssm.init_mamba,
                "mlstm": ssm.init_mlstm, "slstm": ssm.init_slstm}
 
 
@@ -112,16 +121,17 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 # ---------------------------------------------------------------- forward --
 
 def _apply_mlp(bp: Params, h: torch.Tensor, cfg: ModelConfig, mlp: str,
-               telemetry: Telemetry = NULL_TELEMETRY
+               telemetry: Telemetry = NULL_TELEMETRY,
+               loads: Optional[list] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's MLP half with its residual: (h, the MoE aux loss or
-    None)."""
+    None); a balanced MoE layer appends its expert load to ``loads``."""
     if mlp == "none":
         return h, None
     hn = apply_norm(bp["norm2"], h, cfg.norm_type)
     if mlp == "dense":
         return h + apply_mlp(bp["mlp"], hn, cfg.mlp_type), None
-    y, aux = moe_mod.moe_forward(bp["mlp"], hn, cfg, telemetry)
+    y, aux = moe_mod.moe_forward(bp["mlp"], hn, cfg, telemetry, loads)
     return h + y, aux
 
 
@@ -129,25 +139,62 @@ def _apply_block_seq(bp: Params, h: torch.Tensor, cfg: ModelConfig,
                      mixer: str, mlp: str, positions: torch.Tensor,
                      causal: bool, attention_impl: str, impl: str, rope,
                      telemetry: Telemetry, index: int
-                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                Optional[torch.Tensor]]:
     """Block ``index`` over a full sequence, in a ``model.layer`` span:
-    (h, the fp32 MoE aux loss or None)."""
-    with telemetry.tracer.span("model.layer", layer=index):
-        hn = apply_norm(bp["norm1"], h, cfg.norm_type)
+    (h, the fp32 MoE aux loss or None, the layer's expert load (E,) when
+    its router has a balancing bias, else None). The load is an output
+    of the block, so a checkpointed block's recompute adds nothing.
+
+    A latent-attention block on a mesh runs each half whole on local
+    tensors: the mixer half on each rank's batch rows, the MLP half on
+    the whole batch where it is an MoE layer (its routing couples every
+    token) and on the rows where it is dense. Its few hundred small ops
+    then dispatch as plain tensor ops, not through ``DTensor`` on the
+    host; on one rank the arithmetic is the unplaced block's."""
+
+    def mix(p: Params, h: torch.Tensor):
+        hn = apply_norm(p["norm1"], h, cfg.norm_type)
         if mixer == "attn":
-            mixed = attn.attention_forward(bp["mixer"], hn, cfg, positions,
+            mixed = attn.attention_forward(p["mixer"], hn, cfg, positions,
                                            causal, attention_impl, impl,
                                            rope)
+        elif mixer == "mla":
+            mixed = mla_mod.mla_forward(p["mixer"], hn, cfg, positions,
+                                        causal, attention_impl, impl, rope,
+                                        telemetry)
         elif mixer == "mamba":
-            mixed, _ = ssm.mamba_forward(bp["mixer"], hn, cfg)
+            mixed, _ = ssm.mamba_forward(p["mixer"], hn, cfg)
         elif mixer == "mlstm":
-            mixed, _ = ssm.mlstm_forward(bp["mixer"], hn, cfg,
+            mixed, _ = ssm.mlstm_forward(p["mixer"], hn, cfg,
                                          impl=cfg.mlstm_impl)
         elif mixer == "slstm":
-            mixed, _ = ssm.slstm_forward(bp["mixer"], hn, cfg)
+            mixed, _ = ssm.slstm_forward(p["mixer"], hn, cfg)
         else:
             raise ValueError(mixer)
-        return _apply_mlp(bp, h + mixed, cfg, mlp, telemetry)
+        return h + mixed, ()
+
+    def feed(p: Params, h: torch.Tensor):
+        loads: list = []
+        h, aux = _apply_mlp(p, h, cfg, mlp, telemetry, loads)
+        return (h, aux) + tuple(loads)
+
+    with telemetry.tracer.span("model.layer", layer=index):
+        if mixer != "mla" or not is_dtensor(h):
+            h, aux, *load = feed(bp, mix(bp, h)[0])
+            return h, aux, (load[0] if load else None)
+        half = {k: bp[k] for k in ("norm1", "mixer")}
+        h = on_batch_rows(mix, h, half, (), 1)[0]
+        if mlp == "none":
+            return h, None, None
+        half = {k: bp[k] for k in ("norm2", "mlp")}
+        if mlp == "dense":
+            h = on_batch_rows(lambda p, h: (feed(p, h)[0], ()), h, half,
+                              (), 1)[0]
+            return h, None, None
+        h, aux, *load = on_all_rows(
+            feed, h, half, 3 if moe_mod.BIAS in bp["mlp"] else 2)
+        return h, aux, (load[0] if load else None)
 
 
 def _remat_contexts(telemetry: Telemetry):
@@ -171,10 +218,13 @@ def forward(params: Params, cfg: ModelConfig, *,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             attention_impl: str = "auto", remat: bool = False,
-            impl: str = "kernel", telemetry: Telemetry = NULL_TELEMETRY
+            impl: str = "kernel", telemetry: Telemetry = NULL_TELEMETRY,
+            loads: Optional[list] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (fp32 logits (B, S, V), the fp32
-    aux loss summed over the MoE layers, 0 without any).
+    aux loss summed over the MoE layers, 0 without any). ``loads``, a
+    list, gets the expert load of each MoE layer with a balancing bias,
+    in layer order.
 
     ``tokens``: (B, S) integers (LM / VLM text); ``embeds``: (B, S_e, d)
     precomputed frontend embeddings (audio frames / vision patches), cast
@@ -194,8 +244,7 @@ def forward(params: Params, cfg: ModelConfig, *,
     h = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
-    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) \
-        if cfg.uses_attention else None
+    rope = _rope(cfg, positions)
     causal = not cfg.encoder_only
     remat = remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -207,15 +256,37 @@ def forward(params: Params, cfg: ModelConfig, *,
             h = seq_parallel(h)
         args = (layer, h, cfg, mixer, mlp, positions, causal,
                 attention_impl, impl, rope, telemetry, i)
-        h, a = checkpoint(_apply_block_seq, *args, use_reentrant=False,
-                          **marks) if remat else _apply_block_seq(*args)
+        h, a, load = checkpoint(_apply_block_seq, *args,
+                                use_reentrant=False, **marks) \
+            if remat else _apply_block_seq(*args)
         if a is not None:
             aux = aux + a
+        if load is not None and loads is not None:
+            loads.append(load)
     with telemetry.tracer.span("model.head"):
         return _logits(params, cfg, h), aux
 
 
 # ----------------------------------------------------------------- decode --
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    """The RoPE tables a model's attention layers share, or None: the
+    whole head, or latent attention's rope slice."""
+    if not cfg.uses_attention:
+        return None
+    if cfg.mla is not None:
+        return mla_mod.rope_for(cfg, positions)
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def refuse_latent_decode(cfg: ModelConfig) -> None:
+    """Raise for a config with latent attention: the port has no decode
+    cache of the latent yet, so nothing decodes or serves it."""
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: latent attention (MLA) has no decode cache in the "
+            f"port yet; it trains and runs full-sequence forwards only")
+
 
 def _init_state(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
                 dev: torch.device) -> Dict[str, torch.Tensor]:
@@ -233,7 +304,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> DecodeState:
     """One zeroed state dict per layer (see the module docstring): bf16
     (batch, max_len, Hk, Dh) K and V caches for attention, the fp32
-    recurrent states (and Mamba's bf16 conv window) otherwise."""
+    recurrent states (and Mamba's bf16 conv window) otherwise. Latent
+    attention raises (:func:`refuse_latent_decode`)."""
+    refuse_latent_decode(cfg)
     dev = resolve_device(device)
     return [_init_state(cfg, mixer, batch, max_len, dev)
             for mixer, _ in layer_kinds(cfg)]
@@ -264,9 +337,9 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``kv_update="scatter"``; the recurrent states are new tensors."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    refuse_latent_decode(cfg)
     h = embed(params["embed"], tokens)
-    rope = rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta) \
-        if cfg.uses_attention else None
+    rope = _rope(cfg, pos[:, None])
     new_state = []
     for layer, st, (mixer, mlp) in zip(params["layers"], state,
                                        layer_kinds(cfg)):

@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (DecodeState, decode_step,
-                                      init_decode_state, resolve_device)
+                                      init_decode_state,
+                                      refuse_latent_decode, resolve_device)
 from repro_torch.serve.kvcache import PagedKVCacheManager
 
 
@@ -67,6 +68,7 @@ class ServingEngine:
                  max_len: int = 128, page_size: int = 16,
                  cache_budget_pages: int = 64, policy: str = "cost",
                  device="cuda", impl: str = "kernel"):
+        refuse_latent_decode(cfg)
         self.cfg = cfg
         self.params = params
         self.slots = slots

@@ -13,7 +13,8 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import decode_step, forward
+from repro_torch.models.model import (decode_step, forward,
+                                      refuse_latent_decode)
 from repro_torch.sharding.local import batch_only, is_dtensor, on_local_shards
 
 
@@ -25,7 +26,10 @@ def _greedy(last: torch.Tensor) -> torch.Tensor:
 def make_serve_step(cfg: ModelConfig, impl: str = "kernel") -> Callable:
     """A greedy batched decode step for ``cfg``. On ``DTensor`` logits
     each rank takes the argmax of its whole rows (the vocabulary
-    gathered first)."""
+    gathered first). Latent attention raises here: it has no decode
+    cache in the port yet."""
+    refuse_latent_decode(cfg)
+
     @torch.no_grad()
     def serve_step(params, tokens: torch.Tensor, state, pos: torch.Tensor):
         logits, state = decode_step(params, cfg, tokens, state, pos,

@@ -270,28 +270,90 @@ def on_local_shards(fn, ref: torch.Tensor, in_placements, out_placements):
                      device_mesh=mesh, redistribute_inputs=True)
 
 
+def _settled(t: torch.Tensor, want: List[Any],
+             one: Optional[List[Any]] = None) -> List[Any]:
+    """``want`` on the mesh dims of more than one rank; on a dim of one
+    rank, where every placement holds the same local tensor, ``t``'s own
+    placement (or ``one``'s): ``local_map`` then redistributes nothing
+    there, which on the host costs as much as a small layer's op."""
+    mesh = t.device_mesh
+    one = one or t.placements
+    return [o if mesh.size(d) == 1 else w
+            for d, (o, w) in enumerate(zip(one, want))]
+
+
+def _flat(params: dict, path: tuple = ()) -> List[tuple]:
+    """(path, tensor) of every leaf of a nested dict, keys sorted."""
+    out: List[tuple] = []
+    for k in sorted(params):
+        v = params[k]
+        out += _flat(v, path + (k,)) if isinstance(v, dict) else \
+            [(path + (k,), v)]
+    return out
+
+
+def _unzip(flat: List[tuple]) -> tuple:
+    """(paths, tensors) of :func:`_flat`'s pairs."""
+    return tuple(p for p, _ in flat), tuple(t for _, t in flat)
+
+
+def _nest(paths: Sequence[tuple], values: Sequence[Any]) -> dict:
+    """The nested dict :func:`_flat` flattened."""
+    out: dict = {}
+    for path, v in zip(paths, values):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
 def on_batch_rows(fn, x: torch.Tensor, params: dict, states: tuple,
                   n_out: int):
     """``fn(params, x, *states)`` run on each rank's whole batch rows:
     ``x`` and the ``states`` batch-sharded as ``x`` is, every parameter
-    gathered whole. ``fn`` returns ``(y, (s1, s2, ...))``; this returns
-    the same as ``DTensor``s, batch-sharded, ``n_out`` tensors in all.
-    For recurrences that DTensor has no rules for (the SSM cells and
-    scans). A plain ``x`` is ``fn(params, x, *states)`` itself."""
+    (``params`` a dict of tensors, nested or not) gathered whole. ``fn``
+    returns ``(y, (s1, s2, ...))``; this returns the same as
+    ``DTensor``s, batch-sharded, ``n_out`` tensors in all. For
+    recurrences that DTensor has no rules for (the SSM cells and scans),
+    and for layers whose many small ops would each pay DTensor's dispatch
+    on the host. A plain ``x`` is ``fn(params, x, *states)`` itself."""
     if not is_dtensor(x):
         return fn(params, x, *states)
-    keys = sorted(params)
+    paths, leaves = _unzip(_flat(params))
+    states = tuple(as_dtensor(s, x) for s in states)
     rows, rep = batch_only(x), replicated(x)
 
     def local(x, *flat):
-        y, st = fn(dict(zip(keys, flat[:len(keys)])), x,
-                   *flat[len(keys):])
+        y, st = fn(_nest(paths, flat[:len(paths)]), x, *flat[len(paths):])
         return (y, *st)
 
-    in_placements = (rows,) + (rep,) * len(keys) + (rows,) * len(states)
-    out = on_local_shards(local, x, in_placements, (rows,) * n_out)(
-        x, *(params[k] for k in keys), *(as_dtensor(s, x) for s in states))
+    in_placements = [_settled(x, rows)] + [_settled(t, rep) for t in leaves] \
+        + [_settled(t, rows) for t in states]
+    out = on_local_shards(local, x, in_placements,
+                          (_settled(x, rows),) * n_out)(x, *leaves, *states)
     return out[0], tuple(out[1:])
+
+
+def on_all_rows(fn, x: torch.Tensor, params: dict, n_out: int):
+    """``fn(params, x)`` run by every rank on the whole batch, for a layer
+    that couples the batch's rows (an MoE layer's capacity and queue
+    positions count every token): ``x`` and every parameter gathered
+    whole. ``fn`` returns ``n_out`` tensors, y first; y comes back placed
+    as ``x`` is (pending sums resolved), each rank keeping its rows, the
+    rest replicated. A plain ``x`` is ``fn(params, x)`` itself."""
+    if not is_dtensor(x):
+        return fn(params, x)
+    paths, leaves = _unzip(_flat(params))
+    rep, placed = replicated(x), unreduced(x)
+    y_at = _settled(x, rep, placed)
+    out = on_local_shards(
+        lambda x, *flat: tuple(fn(_nest(paths, flat), x)), x,
+        [_settled(t, rep) for t in (x, *leaves)],
+        (y_at,) + (rep,) * (n_out - 1))(x, *leaves)
+    y = out[0] if y_at == placed else \
+        out[0].redistribute(x.device_mesh, placed)
+    return (y, *out[1:])
 
 
 def batch_rows(n_out: int, stateful: bool = False):

@@ -136,6 +136,12 @@ def _param_spec(path: str, shape: Sequence[int],
         return P(fit(tp, shape[0]), fit(f, shape[1]))
     if leaf == "router":
         return P(fit(f, shape[0]), None)
+    # Latent attention: the latent and the shared RoPE key are every
+    # head's (columns whole), the per-head up-projection splits by head.
+    if leaf == "wkv_a":
+        return P(fit(f, shape[0]), None)
+    if leaf == "wkv_b":
+        return P(fit(f, shape[0]), fit(tp, shape[1]))
     if leaf in ("w_in", "w_gate"):
         if len(shape) == 3:                           # MoE (E, d, de)
             return P(fit(tp, shape[0]), fit(f, shape[1]), None)

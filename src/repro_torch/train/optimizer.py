@@ -25,10 +25,11 @@ from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 from repro_torch.kernels.adamw import adamw as adamw_ops
 from repro_torch.kernels.adamw.ref import (  # noqa: F401 (lr_schedule)
     HYPER_FIELDS, lr_schedule, step_scalars, sum_squares, update_leaf)
+from repro_torch.models.moe import BIAS
 from repro_torch.obs.telemetry import NULL_TELEMETRY, Telemetry
 from repro_torch.sharding.local import (is_dtensor, moved_dims,
                                         sum_over_shards, to_local)
-from repro_torch.train.tree import Tree, leaves, tree_map
+from repro_torch.train.tree import Tree, leaves, tree_map, without
 
 #: ``impl`` values of :func:`adamw_update`.
 IMPLS = ("kernel", "plain")
@@ -50,11 +51,19 @@ class OptimizerConfig:
     state_dtype: Optional[Any] = None      # None -> fp32; bf16 for XXL
 
 
+def trainable(params: Tree) -> Tree:
+    """The leaves AdamW updates: ``params`` without the routers'
+    balancing biases (``models.moe.BIAS``), which the train step moves by
+    their own rule."""
+    return without(params, (BIAS,))
+
+
 def adamw_init(params: Tree, cfg: OptimizerConfig) -> Dict[str, Any]:
     """Zero first and second moments shaped (and, for ``DTensor``
-    parameters, placed) like ``params``, in ``state_dtype`` or fp32, and
-    an int32 step count of 0."""
+    parameters, placed) like :func:`trainable` ``(params)``, in
+    ``state_dtype`` or fp32, and an int32 step count of 0."""
     dt = cfg.state_dtype or torch.float32
+    params = trainable(params)
 
     def zeros(p):
         return torch.zeros_like(p, dtype=dt,

@@ -12,10 +12,14 @@ metrics)``; batches are dicts of tensors on the parameters' device:
 With ``n_microbatches > 1`` the leading batch dim is split and the
 gradients are accumulated in fp32; ``remat`` checkpoints every layer
 inside the model. The parameters and moments are updated in place
-(:func:`repro_torch.train.optimizer.adamw_update`). A ``telemetry``
+(:func:`repro_torch.train.optimizer.adamw_update`, over the trainable
+leaves). A router's balancing bias (``models.moe.BIAS``) takes no
+gradient and no part in AdamW, its decay or its clipping: after the
+update it moves by ``moe.bias_update_speed * sign(mean load - load)``
+from the step's expert loads (:func:`balance_biases`). A ``telemetry``
 handed to ``make_train_step`` traces the step (``train.step`` >
-``train.forward``, ``train.backward``, ``train.optimizer``) and what
-runs inside it, whenever it is recording.
+``train.forward``, ``train.backward``, ``train.optimizer``,
+``moe.balance``) and what runs inside it, whenever it is recording.
 """
 from __future__ import annotations
 
@@ -26,9 +30,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import forward, lm_loss
+from repro_torch.models.moe import BIAS
 from repro_torch.obs.telemetry import NULL_TELEMETRY, Telemetry
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_init,
-                                         adamw_update)
+                                         adamw_update, trainable)
 from repro_torch.train.tree import Tree, leaves, tree_map
 
 Batch = Dict[str, torch.Tensor]
@@ -39,14 +44,23 @@ def loss_fn(params: Tree, cfg: ModelConfig, batch: Batch,
             aux_weight: float = 0.01, impl: str = "kernel",
             telemetry: Telemetry = NULL_TELEMETRY
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss + aux_weight * aux, {"loss", "aux_loss"}) of one batch."""
+    """(loss + aux_weight * aux, {"loss", "aux_loss"}) of one batch; the
+    config's ``moe.aux_weight`` replaces ``aux_weight`` where it is set.
+    With balancing biases the metrics also hold ``expert_load``, (MoE
+    layers with a bias, E): the pairs that chose each expert."""
+    loads: list = []
     logits, aux = forward(params, cfg, tokens=batch.get("tokens"),
                           embeds=batch.get("embeds"),
                           attention_impl=attention_impl, remat=remat,
-                          impl=impl, telemetry=telemetry)
+                          impl=impl, telemetry=telemetry, loads=loads)
     loss = lm_loss(logits, batch["labels"])
+    if cfg.moe is not None and cfg.moe.aux_weight is not None:
+        aux_weight = cfg.moe.aux_weight
     total = loss + aux_weight * aux
-    return total, {"loss": loss.detach(), "aux_loss": aux.detach()}
+    metrics = {"loss": loss.detach(), "aux_loss": aux.detach()}
+    if loads:
+        metrics["expert_load"] = torch.stack(loads)
+    return total, metrics
 
 
 def value_and_grad(params: Tree, lfn: Callable[..., Any], batch: Batch,
@@ -111,6 +125,26 @@ def reference_decay_mask(params: Tree) -> Tree:
     return mask
 
 
+def bias_leaves(params: Tree) -> List[torch.Tensor]:
+    """The balancing biases of the MoE layers that have one, in layer
+    order."""
+    return [layer["mlp"][BIAS] for layer in params.get("layers", [])
+            if BIAS in layer.get("mlp", {})]
+
+
+@torch.no_grad()
+def balance_biases(params: Tree, load: torch.Tensor, cfg: ModelConfig
+                   ) -> None:
+    """DeepSeek-V3's auxiliary-loss-free balancing, in place: each MoE
+    layer's bias b_e += gamma * sign(mean_e load - load_e), from ``load``
+    (layers, E), gamma = ``cfg.moe.bias_update_speed``."""
+    load = load.float()
+    step = cfg.moe.bias_update_speed * torch.sign(
+        load.mean(-1, keepdim=True) - load)
+    for i, b in enumerate(bias_leaves(params)):
+        b.add_(step[i])
+
+
 def make_train_step(cfg: ModelConfig,
                     opt_cfg: Optional[OptimizerConfig] = None,
                     n_microbatches: int = 1,
@@ -118,10 +152,12 @@ def make_train_step(cfg: ModelConfig,
                     remat: bool = True, impl: str = "kernel",
                     telemetry: Telemetry = NULL_TELEMETRY) -> Callable:
     """A train step for ``cfg``: gradients of :func:`loss_fn`, then one
-    AdamW update in place, decaying what the reference decays
-    (:func:`reference_decay_mask`); ``impl`` picks the attention and
-    AdamW kernels or their plain versions. Each call is ``telemetry``'s
-    ``train.step`` span."""
+    AdamW update in place of the trainable leaves, decaying what the
+    reference decays (:func:`reference_decay_mask`), then the balancing
+    biases' move (:func:`balance_biases`, the ``moe.balance`` span) where
+    the routers have them; ``impl`` picks the attention and AdamW kernels
+    or their plain versions. Each call is ``telemetry``'s ``train.step``
+    span."""
     opt_cfg = opt_cfg or OptimizerConfig()
     lfn = functools.partial(loss_fn, cfg=cfg, attention_impl=attention_impl,
                             remat=remat, impl=impl, telemetry=telemetry)
@@ -132,9 +168,14 @@ def make_train_step(cfg: ModelConfig,
                                            n_microbatches, telemetry)
             it = iter(grads)
             grads = tree_map(lambda _: next(it), params)
-            params, opt_state, opt_metrics = adamw_update(
-                params, grads, opt_state, opt_cfg,
-                reference_decay_mask(params), telemetry, impl)
+            train = trainable(params)
+            _, opt_state, opt_metrics = adamw_update(
+                train, trainable(grads), opt_state, opt_cfg,
+                reference_decay_mask(train), telemetry, impl)
+            load = metrics.pop("expert_load", None)
+            if load is not None:
+                with telemetry.tracer.span("moe.balance"):
+                    balance_biases(params, load, cfg)
             metrics.update(opt_metrics)
             return params, opt_state, metrics
 

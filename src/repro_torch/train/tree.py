@@ -54,3 +54,14 @@ def tree_map(fn: Callable[..., Any], tree: Tree, *rest: Tree,
     if isinstance(tree, dict):
         return dict(zip(keys, mapped))
     return type(tree)(mapped)
+
+
+def without(tree: Tree, names) -> Tree:
+    """``tree`` with every dict entry whose key is in ``names`` left out
+    (new dicts and lists, the same leaves)."""
+    if isinstance(tree, dict):
+        return {k: without(v, names) for k, v in tree.items()
+                if k not in names}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(without(v, names) for v in tree)
+    return tree

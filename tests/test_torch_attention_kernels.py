@@ -131,25 +131,43 @@ def test_flash_new_head_dims_match_pallas(J, d, h, hk, causal):
     np.testing.assert_allclose(f32(got), f32(want), rtol=2e-5, atol=2e-5)
 
 
+def kernels_missing(cfg):
+    """What of ``cfg``'s attention no CUDA kernel takes: its (q/k, value)
+    head dims in the flash wrapper (one dim of ``HEAD_DIMS``, or a pair
+    of ``HEAD_DIM_PAIRS``), and its head dim in the paged wrapper. Latent
+    attention needs no paged kernel: serving refuses it, since the port
+    writes no decode cache of the latent yet (``model.
+    refuse_latent_decode``)."""
+    qk, v = cfg.attention_dims
+    out = []
+    if not ((qk == v and qk in tflash.HEAD_DIMS) or
+            (qk, v) in tflash.HEAD_DIM_PAIRS):
+        out.append(("flash", qk, v))
+    if cfg.mla is None and qk not in tpaged.HEAD_DIMS:
+        out.append(("paged", qk))
+    return out
+
+
 def test_every_attention_head_dim_has_a_kernel():
-    """Every architecture with an attention mixer has a head dim that both
-    CUDA wrappers take, so none of them falls outside the kernels on the
-    card."""
+    """Every architecture with an attention mixer has head dims that the
+    CUDA wrappers take (:func:`kernels_missing`), so none of them falls
+    outside the kernels on the card; latent attention's pair is among
+    them."""
     from repro_torch.configs import get, list_archs
-    dims = {a: get(a).resolved_head_dim for a in list_archs()
-            if get(a).uses_attention}
+    dims = {a: get(a) for a in list_archs() if get(a).uses_attention}
     assert dims, "no attention architecture"
-    missing = {a: d for a, d in dims.items()
-               if d not in tflash.HEAD_DIMS or d not in tpaged.HEAD_DIMS}
+    assert dims["moonlight-16b-a3b"].attention_dims == (192, 128)
+    missing = {a: kernels_missing(c) for a, c in dims.items()
+               if kernels_missing(c)}
     assert not missing, f"head dims without a kernel: {missing}"
 
 
 def test_every_entry_point_head_dim_has_a_kernel():
-    """Every config an entry point builds has a head dim both CUDA
-    wrappers take: ``reduced(get(a))`` for each architecture (what
-    ``launch.serve`` serves), ``launch.train``'s default ``--d-model 128``,
-    and the examples' widths (``serve_lm_torch`` d_model 64,
-    ``train_lm_torch`` d_model 512)."""
+    """Every config an entry point builds has head dims the CUDA wrappers
+    take (:func:`kernels_missing`): ``reduced(get(a))`` for each
+    architecture (what ``launch.serve`` serves), ``launch.train``'s
+    default ``--d-model 128``, and the examples' widths
+    (``serve_lm_torch`` d_model 64, ``train_lm_torch`` d_model 512)."""
     from repro_torch.configs import get, list_archs, reduced
     built = {}
     for a in list_archs():
@@ -161,10 +179,12 @@ def test_every_entry_point_head_dim_has_a_kernel():
                                                      n_periods=14,
                                                      vocab=32000))):
             if cfg.uses_attention:
-                built[(a, what)] = cfg.resolved_head_dim
-    assert built[("qwen1.5-0.5b", "reduced")] == 16
-    missing = {k: d for k, d in built.items()
-               if d not in tflash.HEAD_DIMS or d not in tpaged.HEAD_DIMS}
+                built[(a, what)] = cfg
+    assert built[("qwen1.5-0.5b", "reduced")].resolved_head_dim == 16
+    assert built[("moonlight-16b-a3b", "reduced")].attention_dims == \
+        (192, 128)
+    missing = {k: kernels_missing(c) for k, c in built.items()
+               if kernels_missing(c)}
     assert not missing, f"head dims without a kernel: {missing}"
 
 
@@ -336,6 +356,83 @@ def test_flash_backward_contract():
     with torch.no_grad():
         assert tflash_ops.flash_attention(qm, km, vm).grad_fn is None
     assert tflash_ops.flash_attention(qm, km, vm).grad_fn is not None
+
+
+# ------------------------------------------ a value head narrower than q/k
+
+
+def make_pair(seed, b, sq, sk, h, hk, d, dv):
+    """Heads-first float32 numpy q (B, H, Sq, D), k (B, Hk, Sk, D) and v
+    (B, Hk, Sk, DV)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, sq, d), np.float32),
+            rng.standard_normal((b, hk, sk, d), np.float32),
+            rng.standard_normal((b, hk, sk, dv), np.float32))
+
+
+def naive_pair_attention(q, k, v, causal, q_offset=0):
+    """Softmax attention over expanded KV heads in float32, written out:
+    q K^T / sqrt(D) over q's dim, the softmax, then P V over v's dim."""
+    rep = q.shape[1] // k.shape[1]
+    k = torch.repeat_interleave(k, rep, 1)
+    v = torch.repeat_interleave(v, rep, 1)
+    s = q @ k.transpose(-1, -2) / np.sqrt(q.shape[-1])
+    if causal:
+        keep = torch.arange(k.shape[2])[None, :] <= \
+            torch.arange(q.shape[2])[:, None] + q_offset
+        s = s.masked_fill(~keep, float("-inf"))
+    return torch.softmax(s, -1) @ v
+
+
+@pytest.mark.parametrize("d,dv", tflash.HEAD_DIM_PAIRS)
+@pytest.mark.parametrize("b,sq,sk,h,hk,causal,q_offset", [
+    (1, 96, 96, 4, 4, True, 0), (2, 64, 128, 6, 2, False, 0),
+    (1, 64, 160, 4, 1, True, 96)])
+def test_flash_pair_plain_matches_naive(d, dv, b, sq, sk, h, hk, causal,
+                                        q_offset):
+    """At a q/k head dim unlike the value head dim (latent attention's
+    pair), the plain flash forward and backward (what the CPU runs)
+    against autograd through naive softmax attention in float32: MHA and
+    GQA, causal with and without q_offset, non-causal."""
+    q, k, v = (tt(x).requires_grad_(True)
+               for x in make_pair(d + sq, b, sq, sk, h, hk, d, dv))
+    out, lse = tflash.flash_attention_fwd(q, k, v, causal=causal, bq=32,
+                                          bk=32, q_offset=q_offset,
+                                          return_lse=True)
+    want = naive_pair_attention(q, k, v, causal, q_offset)
+    assert out.shape == (b, h, sq, dv)
+    np.testing.assert_allclose(f32(out), f32(want), rtol=2e-5, atol=2e-5)
+    dout = tt(np.random.default_rng(sq).standard_normal((b, h, sq, dv),
+                                                        np.float32))
+    got = tflash.flash_attention_bwd(q, k, v, out, lse, dout,
+                                     causal=causal, q_offset=q_offset)
+    assert [tuple(g.shape) for g in got] == [tuple(x.shape)
+                                             for x in (q, k, v)]
+    assert_grads_close(got, torch.autograd.grad(want, (q, k, v), dout),
+                       1e-4, f"({d}, {dv})")
+    # the model-layout entry point, with its padding and its gradient
+    qm, km, vm = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    if causal and q_offset == 0:
+        om = tflash_ops.flash_attention(qm, km, vm, causal=True)
+        np.testing.assert_allclose(f32(om.transpose(1, 2)), f32(want),
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_flash_pair_contract():
+    """A value head dim that is neither q's nor a listed pair's raises, on
+    the CPU as on the card; a listed pair in float32 has no CUDA kernel
+    (checked before any launch)."""
+    d, dv = tflash.HEAD_DIM_PAIRS[0]
+    q, k, v = (tt(x) for x in make_pair(1, 1, 64, 64, 2, 2, d, dv))
+    for bad in (dv - 16, d + 16):
+        with pytest.raises(ValueError, match="DV"):
+            tflash.flash_attention_fwd(q, k, tt(np.zeros((1, 2, 64, bad),
+                                                         np.float32)),
+                                       bq=32, bk=32)
+    with pytest.raises(TypeError, match="bfloat16 only"):
+        tflash._check_kernel_inputs(q, k, v)
+    tflash._check_kernel_inputs(*(x.to(torch.bfloat16) for x in (q, k, v)))
 
 
 # ------------------------------------------------------------------ paged
@@ -633,6 +730,56 @@ def test_flash_bwd_kernel_on_card(d, dtype):
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, again))
         assert_grads_close(got, want, tol, f"D{d} Sq{sq} Sk{sk}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", tflash.HEAD_DIM_PAIRS)
+def test_flash_pair_kernels_on_card(d, dv):
+    """The bf16 forward and backward kernels at a q/k head dim unlike the
+    value head dim (latent attention's (192, 128)) against their plain
+    versions: causal MHA and GQA, Sq and Sk off the tile sizes,
+    non-causal, q_offset; the backward's bits equal from run to run; and
+    the model-layout entry point's gradient at the cell's 16 heads."""
+    _need_card()
+    tol = GRAD_TOLS["bfloat16"]
+    for b, sq, sk, h, hk, causal, off in (
+            (2, 256, 256, 4, 4, True, 0), (1, 130, 130, 4, 4, True, 0),
+            (1, 200, 136, 3, 1, False, 0), (1, 64, 256, 2, 2, True, 192),
+            (1, 384, 384, 6, 2, True, 0)):
+        rng = np.random.default_rng(sq + d)
+        t = [tt(x, "bfloat16").cuda()
+             for x in make_pair(sq + dv, b, sq, sk, h, hk, d, dv)]
+        dout = tt(rng.standard_normal((b, h, sq, dv), np.float32),
+                  "bfloat16").cuda()
+        out, lse = tflash.flash_attention_fwd(*t, causal=causal, bq=1,
+                                              bk=1, q_offset=off,
+                                              return_lse=True)
+        want, lse_plain = tattention_ref(*t, causal=causal, q_offset=off,
+                                         return_lse=True)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(f32(out), f32(want), rtol=2e-2,
+                                   atol=2e-2, err_msg=f"Sq{sq} Sk{sk}")
+        np.testing.assert_allclose(f32(lse), f32(lse_plain), rtol=1e-4,
+                                   atol=1e-4)
+        got = tflash.flash_attention_bwd(*t, out, lse, dout, causal=causal,
+                                         q_offset=off)
+        again = tflash.flash_attention_bwd(*t, out, lse, dout,
+                                           causal=causal, q_offset=off)
+        want = tflash.flash_attention_bwd(*t, out, lse, dout, causal=causal,
+                                          q_offset=off, impl="plain")
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert_grads_close(got, want, tol, f"({d}, {dv}) Sq{sq} Sk{sk}")
+    t = [tt(x, "bfloat16").cuda().transpose(1, 2).requires_grad_(True)
+         for x in make_pair(3, 1, 1024, 1024, 16, 16, d, dv)]
+    dout = torch.randn((1, 1024, 16, dv), device="cuda",
+                       dtype=torch.bfloat16)
+    got = torch.autograd.grad(_blockwise_attention(*t, True, "kernel"), t,
+                              dout)
+    want = torch.autograd.grad(_blockwise_attention(*t, True, "plain"), t,
+                               dout)
+    torch.cuda.synchronize()
+    assert_grads_close(got, want, tol, "entry point")
 
 
 def _serving_paged(seed, b, lens, dtype="bfloat16"):

@@ -20,8 +20,14 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 ARCHS = ["llama3.2-3b", "deepseek-moe-16b", "xlstm-125m",
-         "jamba-1.5-large-398b"]
+         "jamba-1.5-large-398b", "moonlight-16b-a3b"]
 KINDS = ["train", "prefill", "decode"]
+#: Latent attention has no decode cache in the port yet, so its decode
+#: cell is reported as a skip (test_mla_decode_is_a_reported_skip), not
+#: lowered.
+NO_DECODE = {"moonlight-16b-a3b"}
+CELLS_OK = [(a, k) for a in ARCHS for k in KINDS
+            if not (k == "decode" and a in NO_DECODE)]
 MESHES = {"2x2": (("data", "model"), (2, 2)),
           "2x2x2": (("pod", "data", "model"), (2, 2, 2))}
 SEQ, BATCH = 16, 8
@@ -75,8 +81,7 @@ def rows():
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,kind", CELLS_OK)
 def test_reduced_cell_ok(rows, arch, kind, mesh):
     row = rows[mesh][f"{arch}/{kind}"]
     assert row["status"] == "ok", row
@@ -104,6 +109,15 @@ def test_per_chip_counts_shrink_with_the_mesh(rows):
         small = rows["2x2"][f"{arch}/train"]["hlo_flops_per_chip"]
         big = rows["2x2x2"][f"{arch}/train"]["hlo_flops_per_chip"]
         assert 0.4 * small < big < 0.75 * small, (arch, small, big)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_mla_decode_is_a_reported_skip(rows, mesh):
+    """Latent attention's decode cell says why it is not lowered."""
+    for arch in NO_DECODE:
+        row = rows[mesh][f"{arch}/decode"]
+        assert row["status"] == "skip"
+        assert "latent" in row["reason"]
 
 
 def run_dryrun(*args):

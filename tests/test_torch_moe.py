@@ -189,3 +189,38 @@ def test_topk_ties_follow_reference(router):
     got, aux = tmoe.moe_forward(tp, xt, tcfg)
     np.testing.assert_allclose(f32(got), f32(want), rtol=1e-4, atol=1e-4)
     assert float(aux) == pytest.approx(float(jaux), rel=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_held_combine_gradient_matches_autograd(dtype):
+    """The dispatch and combine of a layer that holds part of the experts
+    (``_DispatchHeld``, ``_CombineHeld``, all gathers) give the outputs
+    and gradients that autograd gives through the sort dispatch's
+    arithmetic with a zero overflow row (``_combine_sort``, and a gather
+    of the tokens), while most pairs have no slot (their experts are
+    absent)."""
+    gen = torch.Generator().manual_seed(3)
+    H, C, d, T, K = 2, 5, 8, 12, 4
+    slot = torch.full((T, K), H * C)
+    live = torch.randperm(T * K, generator=gen)[:H * C - 2]  # 2 slots empty
+    slot.view(-1)[live] = torch.randperm(H * C, generator=gen)[:H * C - 2]
+    src = torch.full((H * C,), T * K)
+    src[slot.view(-1)[live]] = live
+    how = torch.cat([slot.view(-1), src])
+    gates = torch.rand((T, K), generator=gen)
+    xt = torch.randn((T, d), generator=gen).to(dtype)
+    ye = torch.randn((H, C, d), generator=gen).to(dtype)
+    dy = torch.randn((T, d), generator=gen).to(dtype)
+    dxe = torch.randn((H * C, d), generator=gen).to(dtype)
+    tok = torch.where(src < T * K, src // K, T)
+    outs = []
+    for held in (True, False):
+        a, g, x = (t.clone().requires_grad_(True) for t in (ye, gates, xt))
+        how_ = how if held else slot
+        y = tmoe._combine(a, how_, g, False, dtype, held)
+        xe = tmoe._DispatchHeld.apply(x, slot, src) if held else \
+            torch.cat([x, x.new_zeros((1, d))])[tok]
+        outs.append((y, xe) + torch.autograd.grad((y, xe), (a, g, x),
+                                                  (dy, dxe)))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

@@ -11,6 +11,7 @@ jax = pytest.importorskip("jax")
 
 from repro.configs import SHAPES as JSHAPES  # noqa: E402
 from repro.configs import get as jget  # noqa: E402
+from repro.configs import list_archs as jlist_archs  # noqa: E402
 from repro.launch import hlo_analysis as jhlo  # noqa: E402
 from repro.launch import roofline as jroof  # noqa: E402
 from repro_torch.configs import SHAPES, get, list_archs  # noqa: E402
@@ -19,10 +20,14 @@ from repro_torch.launch.op_analysis import Cost  # noqa: E402
 
 H100 = troof.H100
 COST = dict(flops=3.7e14, bytes=2.1e12, coll_bytes=4.5e10, seq_iters=9e3)
+#: The architectures the reference has too. The port's own
+#: (moonlight-16b-a3b) have no JAX counterpart; test_model_flops_of_mla
+#: and tests/test_torch_mla.py hold them to their plain reference.
+SHARED_ARCHS = [a for a in list_archs() if a in jlist_archs()]
 
 
 @pytest.mark.parametrize("shape", [s.name for s in SHAPES])
-@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("arch", SHARED_ARCHS)
 def test_model_flops_equal_reference(arch, shape):
     tshape = next(s for s in SHAPES if s.name == shape)
     jshape = next(s for s in JSHAPES if s.name == shape)
@@ -70,3 +75,18 @@ def test_collectives_by_axis_rate():
                              axis_sizes={"model": 8, "data": 16})
     assert rep.collective_s == pytest.approx(got)
     assert rep.bottleneck == "collective"
+
+
+def test_model_flops_of_mla():
+    """Latent attention's model FLOPs: 6 N_active T for training, 2
+    N_active T for a prefill, where N_active counts a token's top-6 of the
+    experts; its decode shapes are not applicable (no latent cache)."""
+    cfg = get("moonlight-16b-a3b")
+    n = cfg.active_param_count()
+    assert 2.9e9 < n < 3.0e9 and 15.9e9 < cfg.param_count() < 16.0e9
+    for shape in SHAPES:
+        tokens = shape.global_batch * shape.seq_len
+        if shape.kind == "train":
+            assert troof.model_flops(cfg, shape) == 6.0 * n * tokens
+        elif shape.kind == "prefill":
+            assert troof.model_flops(cfg, shape) == 2.0 * n * tokens
